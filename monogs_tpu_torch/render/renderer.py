@@ -1,0 +1,469 @@
+"""The tiled Gaussian-splat renderer over frozen per-tile lists.
+
+Counterpart of ``monogs_tpu/render/renderer.py`` for the tracking slice:
+the binning half (``_make_lists``, ``build_tile_lists``,
+``refine_fine_lists``, ``tile_images``) and the list-blend render surface
+(``render`` with the n_touched scatter-add, ``tile_rows``,
+``render_fo_grad_tiles``, ``render_pose_jvp_tiles``). Every blend goes
+through the kernels of ``blend_lists``; binning is plain PyTorch sorts, as
+the JAX package left it to XLA.
+
+Binning is not differentiable and runs under ``torch.no_grad``. Indices are
+int64 (PyTorch's index type); every sort key stays in the int32 value range
+of the JAX package, which ``_make_lists`` asserts.
+
+Only ``backend="pallas_lists"`` is ported: the XLA ``_blend`` path and the
+``pallas``/``pallas_compact`` macro backends arrive with the slice of the
+alternative render backends and raise ``NotImplementedError`` here.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..ops import se3
+from .blend_lists import (  # noqa: F401  (the packed row layout)
+    _CA, _CB, _CC, _F, _LOGO, _OPA, _R0, _G0, _B0, _RAD, _U, _V, _Z,
+    blend_lists, blend_lists_counts, blend_lists_jvp8, fo_grad_lists,
+)
+from .camera import Intrinsics
+from .primitives import preprocess
+from .tiling import macro_instance_bin
+
+
+class GaussianArrays(NamedTuple):
+    """Render-facing SoA view of the map (fixed capacity N)."""
+
+    xyz: torch.Tensor        # [N, 3]
+    sh: torch.Tensor         # [N, K, 3] SH coefficients, K = (deg+1)^2
+    log_scale: torch.Tensor  # [N, 3]
+    quat: torch.Tensor       # [N, 4] (w, x, y, z), unnormalized
+    opa_logit: torch.Tensor  # [N, 1]
+    active: torch.Tensor     # [N] bool
+
+
+class RenderConfig(NamedTuple):
+    tile: int = 16
+    macro_tiles: int = 8
+    k_macro: int = 4096
+    k_fine: int = 512
+    sh_degree: int = 0
+    near: float = 0.2
+    macro_chunk: int = 0          # XLA-path knob; unused by the list blend
+    with_n_touched: bool = True
+    fine_mode: str = "sort"       # legacy knob, ignored
+    backend: str = "xla"          # only "pallas_lists" is ported
+    pallas_interpret: bool = False  # TPU interpreter knob; unused here
+    span_cap: int = 16
+    k_big: int = 128
+
+    @property
+    def macro_px(self) -> int:
+        return self.tile * self.macro_tiles
+
+
+class RenderResult(NamedTuple):
+    image: torch.Tensor      # [3, H, W]
+    depth: torch.Tensor      # [1, H, W]
+    opacity: torch.Tensor    # [1, H, W]
+    radii: torch.Tensor      # [N] (0 = culled)
+    n_touched: torch.Tensor  # [N] int32 (zeros if with_n_touched=False)
+
+    @property
+    def visibility_filter(self):
+        return self.radii > 0
+
+
+class TileLists(NamedTuple):
+    """Frozen per-fine-tile Gaussian lists: idx [n_tiles, k_fine] original
+    Gaussian indices front to back at the build pose; vld same-shape bool."""
+
+    idx: torch.Tensor
+    vld: torch.Tensor
+
+
+class _BinAux(NamedTuple):
+    order: torch.Tensor       # [N] depth-ascending permutation
+    sel_m: torch.Tensor       # [Tm, Km] rank-space macro lists
+    vld_m: torch.Tensor
+    x0m: torch.Tensor         # [Tm] macro origins (pixels)
+    y0m: torch.Tensor
+    n_overflow: torch.Tensor  # splats whose strict span overflowed span_cap
+
+
+def _check_backend(cfg: RenderConfig):
+    if cfg.backend != "pallas_lists":
+        raise NotImplementedError(
+            f"backend={cfg.backend!r}: only the list blend ('pallas_lists') "
+            "is ported; the XLA blend and the 'pallas'/'pallas_compact' "
+            "macro backends arrive with the alternative-backends slice")
+
+
+def _pack(prep):
+    cols = [
+        prep.mean2d[:, 0], prep.mean2d[:, 1],
+        prep.conic[:, 0], prep.conic[:, 1], prep.conic[:, 2],
+        prep.opacity,
+        prep.rgb[:, 0], prep.rgb[:, 1], prep.rgb[:, 2],
+        prep.z, prep.radius,
+        torch.log(torch.clamp(prep.opacity, min=1e-12)),
+    ]
+    cols += [torch.zeros_like(prep.z)] * (_F - len(cols))
+    return torch.stack(cols, dim=-1)
+
+
+def _pixel_basis(px_local, py_local):
+    """[6, P] tile-local pixel polynomial basis (px^2, px py, py^2, px, py,
+    1); rows 3/4 are the pixel coordinates the kernels read."""
+    return torch.stack([px_local * px_local, px_local * py_local,
+                        py_local * py_local, px_local, py_local,
+                        torch.ones_like(px_local)], dim=0)
+
+
+def _tile_pmat(cfg: RenderConfig, device):
+    p = cfg.tile * cfg.tile
+    i = torch.arange(p, device=device)
+    return _pixel_basis((i % cfg.tile).to(torch.float32),
+                        (i // cfg.tile).to(torch.float32))
+
+
+def _grid(intr: Intrinsics, cfg: RenderConfig):
+    mpx = cfg.macro_px
+    n_mx = -(-intr.width // mpx)
+    n_my = -(-intr.height // mpx)
+    return n_mx, n_my, cfg.macro_tiles * cfg.macro_tiles
+
+
+def _tile_origins(intr: Intrinsics, cfg: RenderConfig, device):
+    """[Tf] fine-tile pixel origins in macro-major order."""
+    n_mx, n_my, ft = _grid(intr, cfg)
+    mpx, mt = cfg.macro_px, cfg.macro_tiles
+    f = torch.arange(ft, device=device)
+    m = torch.arange(n_mx * n_my, device=device)
+    tx0 = (m % n_mx * mpx)[:, None] + (f % mt * cfg.tile)[None, :]
+    ty0 = (m // n_mx * mpx)[:, None] + (f // mt * cfg.tile)[None, :]
+    return (tx0.reshape(-1).to(torch.float32),
+            ty0.reshape(-1).to(torch.float32))
+
+
+@torch.no_grad()
+def _make_lists(u, v, rad, valid, z, intr: Intrinsics, cfg: RenderConfig,
+                margin: float = 0.0, tsel=None):
+    """Index-space binning over UNSORTED [N] geometry. With ``tsel`` ([S]
+    fine-tile indices) only those tiles' lists are built, in tsel order."""
+    dev = u.device
+    n = u.shape[0]
+    tile, mpx, mt = cfg.tile, cfg.macro_px, cfg.macro_tiles
+    n_mx, n_my, ft = _grid(intr, cfg)
+    n_macro = n_mx * n_my
+
+    order = torch.argsort(
+        torch.where(valid, z, torch.full_like(z, float("inf"))), stable=True)
+    u_s, v_s, valid_s = u[order], v[order], valid[order]
+    rad_strict = rad[order]
+    rad_s = (torch.where(valid_s, rad_strict + margin, rad_strict)
+             if margin else rad_strict)
+
+    r_pow2 = 1 << max(1, (n - 1).bit_length())
+    assert n_macro * 2 * r_pow2 < 2**31, (
+        "macro instance keys overflow int32; lower capacity or image size")
+    mids = torch.arange(n_macro, device=dev)
+    x0m = (mids % n_mx * mpx).to(torch.float32)
+    y0m = (mids // n_mx * mpx).to(torch.float32)
+    sel_m, vld_m, n_overflow = macro_instance_bin(
+        u_s, v_s, rad_s, valid_s, n_mx, n_my, mpx, cfg.k_macro,
+        cfg.span_cap, cfg.k_big,
+        radius_strict=rad_strict if margin else None)
+
+    # fine stage: per fine tile, the macro list's overlapping entries,
+    # strict-first under a margin, back in depth order
+    if tsel is None:
+        f = torch.arange(ft, device=dev)
+        txp = (x0m[:, None] + (f % mt * tile).to(torch.float32))[:, :, None]
+        typ = (y0m[:, None] + (f // mt * tile).to(torch.float32))[:, :, None]
+        um, vm = u_s[sel_m][:, None, :], v_s[sel_m][:, None, :]
+        ranks_sel = sel_m[:, None, :]
+        vldm_b = vld_m[:, None, :]
+        bshape = (n_macro, ft, cfg.k_macro)
+        n_rows = n_macro * ft
+    else:
+        mi = tsel // ft
+        um, vm = u_s[sel_m][mi], v_s[sel_m][mi]
+        tx0f, ty0f = _tile_origins(intr, cfg, dev)
+        txp = tx0f[tsel][:, None]
+        typ = ty0f[tsel][:, None]
+        ranks_sel = sel_m[mi]
+        vldm_b = vld_m[mi]
+        bshape = (tsel.shape[0], cfg.k_macro)
+        n_rows = tsel.shape[0]
+
+    def overlap(rad_all):
+        rm = rad_all[sel_m][:, None, :] if tsel is None else rad_all[sel_m][mi]
+        return (vldm_b
+                & (um + rm >= txp) & (um - rm <= txp + tile - 1)
+                & (vm + rm >= typ) & (vm - rm <= typ + tile - 1))
+
+    fm = overlap(rad_s).reshape(n_rows, cfg.k_macro)
+    ranks = ranks_sel.expand(bshape).reshape(n_rows, cfg.k_macro)
+    if margin:
+        fs = overlap(rad_strict).reshape(n_rows, cfg.k_macro)
+        keys = torch.where(fm, ranks + torch.where(fs, 0, r_pow2),
+                           torch.full_like(ranks, 2 * r_pow2))
+        picked = torch.sort(keys, dim=1).values[:, :cfg.k_fine]
+        rank_g = torch.where(picked < 2 * r_pow2, picked & (r_pow2 - 1),
+                             torch.full_like(picked, r_pow2))
+        rank_g = torch.sort(rank_g, dim=1).values
+    else:
+        keys = torch.where(fm, ranks, torch.full_like(ranks, r_pow2))
+        rank_g = torch.sort(keys, dim=1).values[:, :cfg.k_fine]
+    vld_f = rank_g < r_pow2
+    idx = torch.where(vld_f, order[torch.where(vld_f, rank_g, 0)], 0)
+    return (TileLists(idx=idx, vld=vld_f),
+            _BinAux(order=order, sel_m=sel_m, vld_m=vld_m, x0m=x0m,
+                    y0m=y0m, n_overflow=n_overflow))
+
+
+def _preprocess_rows(gauss: GaussianArrays, fi, T_eff, intr, cfg,
+                     sh_degree=None):
+    """preprocess of the gathered rows ``fi`` (gather-first)."""
+    return preprocess(
+        gauss.xyz[fi], gauss.log_scale[fi], gauss.quat[fi],
+        gauss.opa_logit[fi], gauss.sh[fi], gauss.active[fi], T_eff, intr,
+        sh_degree=cfg.sh_degree if sh_degree is None else sh_degree,
+        near=cfg.near)
+
+
+@torch.no_grad()
+def build_tile_lists(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+                     cfg: RenderConfig, margin: float = 0.0, tau=None,
+                     scale_modifier: float = 1.0, tsel=None,
+                     with_aux: bool = False):
+    """Bin the scene into per-fine-tile lists at the given pose."""
+    T_eff = se3.retract(T_cw, tau) if tau is not None else T_cw
+    prep = preprocess(
+        gauss.xyz, gauss.log_scale, gauss.quat, gauss.opa_logit, gauss.sh,
+        gauss.active, T_eff, intr, sh_degree=0, near=cfg.near,
+        scale_modifier=scale_modifier)
+    lists, aux = _make_lists(prep.mean2d[:, 0], prep.mean2d[:, 1],
+                             prep.radius, prep.valid, prep.z, intr, cfg,
+                             margin, tsel=tsel)
+    return (lists, aux) if with_aux else lists
+
+
+@torch.no_grad()
+def refine_fine_lists(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+                      cfg: RenderConfig, aux: _BinAux, tsel) -> TileLists:
+    """Re-run only the fine binning stage at a fresh pose against frozen
+    macro lists: overlap, depth selection and order all use current-pose
+    geometry; only macro membership is stale (the build margin covers it).
+    Equal depths keep their macro-list order (stable sort)."""
+    ft = cfg.macro_tiles * cfg.macro_tiles
+    orig_m = aux.order[aux.sel_m]                          # [Tm, Km]
+    prep = _preprocess_rows(gauss, orig_m.reshape(-1), T_cw, intr, cfg,
+                            sh_degree=0)
+    km = aux.sel_m.shape
+    mi = tsel // ft
+    um = prep.mean2d[:, 0].reshape(km)[mi]
+    vm = prep.mean2d[:, 1].reshape(km)[mi]
+    rm = prep.radius.reshape(km)[mi]
+    okm = (prep.valid.reshape(km) & aux.vld_m)[mi]
+    tx0f, ty0f = _tile_origins(intr, cfg, um.device)
+    txp = tx0f[tsel][:, None]
+    typ = ty0f[tsel][:, None]
+    tile = cfg.tile
+    fm = (okm
+          & (um + rm >= txp) & (um - rm <= txp + tile - 1)
+          & (vm + rm >= typ) & (vm - rm <= typ + tile - 1))
+    z_m = prep.z.reshape(km)[mi]
+    zkey = torch.where(fm, z_m, torch.full_like(z_m, float("inf")))
+    zs, perm = torch.sort(zkey, dim=1, stable=True)
+    zs = zs[:, :cfg.k_fine]
+    ids = torch.gather(orig_m[mi], 1, perm[:, :cfg.k_fine])
+    vld_f = torch.isfinite(zs)
+    return TileLists(idx=torch.where(vld_f, ids, 0), vld=vld_f)
+
+
+def _masked_rows(packed, vld):
+    """Fold row validity into the log-opacity column (invalid: -1e30)."""
+    logo = torch.where(vld, packed[..., _LOGO],
+                       torch.full_like(packed[..., _LOGO], -1e30))
+    return torch.cat([packed[..., :_LOGO], logo[..., None],
+                      packed[..., _LOGO + 1:]], dim=-1).contiguous()
+
+
+def _assemble(x, intr: Intrinsics, cfg: RenderConfig):
+    """[Tf, P, C] tile-space values -> [C, H, W] image."""
+    n_mx, n_my, _ = _grid(intr, cfg)
+    mt, tile, mpx = cfg.macro_tiles, cfg.tile, cfg.macro_px
+    c = x.shape[-1]
+    x = x.reshape(n_my, n_mx, mt, mt, tile, tile, c)
+    x = x.permute(0, 2, 4, 1, 3, 5, 6)
+    x = x.reshape(n_my * mpx, n_mx * mpx, c)[:intr.height, :intr.width]
+    return x.permute(2, 0, 1)
+
+
+def frame_rows(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+               cfg: RenderConfig, tau=None, scale_modifier: float = 1.0,
+               lists: Optional[TileLists] = None):
+    """What the full-frame blend consumes: (d [Tf, Kf, F] packed rows with
+    validity folded in, vld_f [Tf, Kf], lists, prep). Without ``lists`` the
+    scene is binned at this pose first."""
+    T_eff = se3.retract(T_cw, tau) if tau is not None else T_cw
+    prep = preprocess(gauss.xyz, gauss.log_scale, gauss.quat,
+                      gauss.opa_logit, gauss.sh, gauss.active, T_eff, intr,
+                      sh_degree=cfg.sh_degree, near=cfg.near,
+                      scale_modifier=scale_modifier)
+    packed = _pack(prep)
+    if lists is None:
+        lists, _ = _make_lists(packed[:, _U], packed[:, _V], packed[:, _RAD],
+                               prep.valid, prep.z, intr, cfg)
+    # entries culled at the CURRENT pose must not blend even if the (possibly
+    # stale) lists still carry them
+    vld_f = lists.vld & prep.valid[lists.idx]
+    return _masked_rows(packed[lists.idx], vld_f), vld_f, lists, prep
+
+
+def render(gauss: GaussianArrays, T_cw, intr: Intrinsics, cfg: RenderConfig,
+           tau=None, bg=None, scale_modifier: float = 1.0,
+           lists: Optional[TileLists] = None) -> RenderResult:
+    """Tiled render through the list blend kernel (counts kernel with
+    ``cfg.with_n_touched``). Without ``lists`` the scene is binned at this
+    pose first. Not differentiable (the blend VJP kernel is not ported)."""
+    _check_backend(cfg)
+    n = gauss.xyz.shape[0]
+    dev = gauss.xyz.device
+    if bg is None:
+        bg = torch.zeros((3,), dtype=torch.float32, device=dev)
+    d, vld_f, lists, prep = frame_rows(gauss, T_cw, intr, cfg, tau,
+                                       scale_modifier, lists)
+    tx0, ty0 = _tile_origins(intr, cfg, dev)
+    pmat = _tile_pmat(cfg, dev)
+    W, H = intr.width, intr.height
+    if cfg.with_n_touched:
+        outs, cnts = blend_lists_counts(d, tx0, ty0, pmat, W, H)
+        orig = torch.where(vld_f, lists.idx, n).reshape(-1)
+        n_touched = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
+        n_touched = n_touched.index_add_(
+            0, orig, cnts.to(torch.int32).reshape(-1))[:n]
+    else:
+        outs = blend_lists(d, tx0, ty0, pmat, W, H)
+        n_touched = torch.zeros((n,), dtype=torch.int32, device=dev)
+    accs = outs[..., 4:5]
+    colors = outs[..., :3] + (1.0 - accs) * bg
+    return RenderResult(
+        image=_assemble(colors, intr, cfg),
+        depth=_assemble(outs[..., 3:4], intr, cfg),
+        opacity=_assemble(accs, intr, cfg),
+        radii=prep.radius,
+        n_touched=n_touched,
+    )
+
+
+def tile_rows(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+              cfg: RenderConfig, lists_sub: TileLists, tau=None):
+    """Packed per-tile blend rows d [S, Kf, F] for a tile subset, validity
+    folded into the log-opacity column; differentiable in ``tau``."""
+    T_eff = se3.retract(T_cw, tau) if tau is not None else T_cw
+    s_tiles, kf = lists_sub.idx.shape
+    prep = _preprocess_rows(gauss, lists_sub.idx.reshape(-1), T_eff, intr,
+                            cfg)
+    vld = lists_sub.vld & prep.valid.reshape(s_tiles, kf)
+    return _masked_rows(_pack(prep).reshape(s_tiles, kf, _F), vld)
+
+
+def tile_rows_jvp(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+                  cfg: RenderConfig, lists_sub: TileLists):
+    """``tile_rows`` at ``T_cw`` and its six pose tangents: (d [S, Kf, F],
+    d_tan [S, 6, Kf, F]). Forward-mode AD of preprocess + pack on the
+    gathered S*Kf rows (``torch.func.jvp`` under ``vmap`` over the six basis
+    directions of tau)."""
+    idx_s, vld_s = lists_sub.idx, lists_sub.vld
+    s_tiles, kf = idx_s.shape
+    dev = idx_s.device
+    fi = idx_s.reshape(-1)
+    T_cw = T_cw.detach()
+
+    def pp(tau):
+        prep = _preprocess_rows(gauss, fi, se3.retract(T_cw, tau), intr, cfg)
+        return _pack(prep), prep.valid
+
+    tau0 = torch.zeros(6, dtype=torch.float32, device=dev)
+    eye = torch.eye(6, dtype=torch.float32, device=dev)
+    rows_b, tans, valid_b = torch.func.vmap(
+        lambda e: torch.func.jvp(pp, (tau0,), (e,), has_aux=True))(eye)
+    vld = vld_s & valid_b[0].reshape(s_tiles, kf)
+    d = _masked_rows(rows_b[0].reshape(s_tiles, kf, _F), vld)
+    # tangents of rows that cannot blend are zeroed so that a non-finite
+    # tangent of a culled splat cannot reach the outputs through 0 * inf
+    d_tan = tans.reshape(6, s_tiles, kf, _F).permute(1, 0, 2, 3)
+    d_tan = torch.where(vld[:, None, :, None], d_tan,
+                        torch.zeros_like(d_tan)).contiguous()
+    return d, d_tan
+
+
+def render_pose_jvp_tiles(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+                          cfg: RenderConfig, lists_sub: TileLists, txs, tys):
+    """Tile-space primal outs [S, P, 8] and its six pose-tangent
+    pushforwards touts [S, 6, P, 8] over the tiles of ``lists_sub``
+    (origins txs/tys): the rows and their tangents (``tile_rows_jvp``), then
+    one jvp8 kernel launch for the blend and all six tangents."""
+    _check_backend(cfg)
+    d, d_tan = tile_rows_jvp(gauss, T_cw, intr, cfg, lists_sub)
+    return blend_lists_jvp8(d, d_tan, txs, tys, _tile_pmat(cfg, d.device),
+                            intr.width, intr.height)
+
+
+def render_fo_grad_tiles(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+                         cfg: RenderConfig, lists_sub: TileLists, tx0s, ty0s,
+                         tau, ea, eb, gt_t, mask_t, use_huber: bool,
+                         delta: float, gtd_t=None, alpha: float = 0.95):
+    """Fused first-order objective and its 8-dim gradient (mono and RGB-D).
+
+    One fo_grad kernel launch computes the blend, the masked exposed Huber
+    residual, the output cotangents and the reverse blend; the pose part is
+    pulled back through preprocess with ``torch.autograd.grad`` over
+    ``tile_rows``. Returns (loss, l1, g8) with l1 unscaled and
+    g8 = d(loss)/d[tau(6), ea, eb]."""
+    from ..ops.losses import EXPOSURE_EPS
+
+    _check_backend(cfg)
+    dev = gt_t.device
+    tau = tau.detach().requires_grad_(True)
+    with torch.enable_grad():
+        d = tile_rows(gauss, T_cw.detach(), intr, cfg, lists_sub, tau)
+    dd, dd_dep, sums = fo_grad_lists(
+        d.detach(), tx0s, ty0s, _tile_pmat(cfg, dev), gt_t, mask_t, ea, eb,
+        intr.width, intr.height, use_huber, delta, EXPOSURE_EPS, gtd_t=gtd_t)
+    sumsq = torch.sum(sums[:, 0])
+    l1 = torch.sum(sums[:, 1])
+    if gtd_t is None:
+        loss = torch.sqrt(sumsq + 1e-20)
+        c_rgb = 0.5 / loss
+        dd_total = dd * c_rgb
+    else:
+        # m/m_d = 3: three rgb residuals per pixel against one depth residual
+        loss_rgb = torch.sqrt(sumsq + 1e-20)
+        loss_dep = torch.sqrt(torch.sum(sums[:, 4]) * 3.0 + 1e-20)
+        loss = alpha * loss_rgb + (1.0 - alpha) * loss_dep
+        c_rgb = alpha * 0.5 / loss_rgb
+        c_dep = (1.0 - alpha) * 3.0 * 0.5 / loss_dep
+        dd_total = dd * c_rgb + dd_dep * c_dep
+    (g_tau,) = torch.autograd.grad(d, tau, grad_outputs=dd_total)
+    g_ea = c_rgb * torch.sum(sums[:, 2]) * torch.sign(ea)
+    g_eb = c_rgb * torch.sum(sums[:, 3])
+    return loss, l1, torch.cat([g_tau, g_ea[None], g_eb[None]])
+
+
+def tile_images(img, intr: Intrinsics, cfg: RenderConfig):
+    """[C, H, W] -> [n_fine, P, C] per-fine-tile pixels (zero-padded at the
+    image edges), tiles in the macro-major order of ``_tile_origins``."""
+    c, H, W = img.shape
+    n_mx, n_my, _ = _grid(intr, cfg)
+    mt, tile, mpx = cfg.macro_tiles, cfg.tile, cfg.macro_px
+    x = F.pad(img, (0, n_mx * mpx - W, 0, n_my * mpx - H))
+    x = x.reshape(c, n_my, mt, tile, n_mx, mt, tile)
+    x = x.permute(1, 4, 2, 5, 3, 6, 0)
+    return x.reshape(n_mx * n_my * mt * mt, tile * tile, c)

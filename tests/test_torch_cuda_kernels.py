@@ -1,0 +1,118 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need an NVIDIA GPU and nvcc: the kernels have no CPU mode, so
+they skip elsewhere. Run them on a machine with a card:
+
+    python -m pytest tests/test_torch_cuda_kernels.py -m cuda
+
+The file imports no JAX, so it also runs where JAX is not installed.
+Tolerances are those of chip_smoke.py (the same float32 math in the same
+order along K; sums over pixels in another order).
+"""
+
+import pytest
+import torch
+
+from monogs_tpu_torch.data.synthetic import make_synthetic_scene
+from monogs_tpu_torch.ops import se3
+from monogs_tpu_torch.render import Intrinsics, RenderConfig
+from monogs_tpu_torch.render import blend_lists as bl
+from monogs_tpu_torch.render import renderer as rr
+
+pytestmark = pytest.mark.cuda
+
+INTR = Intrinsics(fx=120.0, fy=120.0, cx=63.5, cy=47.5, width=128,
+                  height=96)
+CFG = RenderConfig(tile=16, macro_tiles=4, k_macro=1024, k_fine=96,
+                   with_n_touched=False, backend="pallas_lists")
+W, H = INTR.width, INTR.height
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the kernels have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+def scene_rows(dev, n=3000):
+    g = torch.Generator().manual_seed(0)
+    scene = make_synthetic_scene(g, n=n, spread=2.0, depth_mean=3.0,
+                                 scale_min=0.03, scale_max=0.09)
+    scene = type(scene)(*(x.to(dev) for x in scene))
+    T = se3.se3_exp(torch.tensor([0.01, -0.02, 0.0, 0.01, 0.0, -0.01],
+                                 device=dev))
+    d = rr.frame_rows(scene, T, INTR, CFG)[0]
+    lists = rr.build_tile_lists(scene, T, INTR, CFG, margin=8.0)
+    d_j, d_tan = rr.tile_rows_jvp(scene, T, INTR, CFG, lists)
+    tx0, ty0 = rr._tile_origins(INTR, CFG, dev)
+    return d, d_j, d_tan, tx0, ty0, rr._tile_pmat(CFG, dev)
+
+
+def assert_outs(got, want):
+    torch.testing.assert_close(got[..., :3], want[..., :3], rtol=0,
+                               atol=2e-5)
+    torch.testing.assert_close(got[..., 3], want[..., 3], rtol=0, atol=2e-4)
+    torch.testing.assert_close(got[..., 4], want[..., 4], rtol=0, atol=2e-5)
+
+
+def assert_per_column(got, want, frac, rtol=1e-3):
+    scale = torch.amax(torch.abs(want).reshape(-1, want.shape[-1]), 0)
+    bad = torch.abs(got - want) > rtol * torch.abs(want) + frac * scale
+    assert not bool(bad.any()), int(bad.sum())
+
+
+def test_blend_and_counts_on_card(card):
+    d, _, _, tx0, ty0, pmat = scene_rows(card)
+    n0 = dict(bl.LAUNCHES)
+    assert_outs(bl.blend_lists(d, tx0, ty0, pmat, W, H),
+                bl.blend_lists_plain(d, tx0, ty0, pmat, W, H))
+    outs, cnts = bl.blend_lists_counts(d, tx0, ty0, pmat, W, H)
+    want, want_c = bl.blend_lists_counts_plain(d, tx0, ty0, pmat, W, H)
+    assert_outs(outs, want)
+    assert torch.equal(cnts, want_c) and float(cnts.sum()) > 0
+    assert bl.LAUNCHES["fwd"] == n0["fwd"] + 1
+    assert bl.LAUNCHES["fwd_counts"] == n0["fwd_counts"] + 1
+
+
+@pytest.mark.parametrize("rgbd", [False, True])
+def test_fo_grad_on_card(card, rgbd):
+    _, d, _, tx0, ty0, pmat = scene_rows(card)
+    n = d.shape[0]
+    tx, ty = tx0[:n], ty0[:n]
+    g = torch.Generator(device=card).manual_seed(1)
+    img = bl.blend_lists_plain(d, tx, ty, pmat, W, H)
+    gt = torch.clamp(img[..., :3] + 0.03 * torch.randn(
+        img[..., :3].shape, generator=g, device=card), 0, 1).contiguous()
+    mask = (torch.rand(img[..., :1].shape, generator=g, device=card)
+            > 0.2).float()
+    gtd = (img[..., 3:4] * 1.02).contiguous() if rgbd else None
+    args = (d, tx, ty, pmat, gt, mask, torch.tensor(1.07, device=card),
+            torch.tensor(0.015, device=card), W, H)
+    kw = dict(use_huber=True, delta=0.01, eps=1e-8, gtd_t=gtd)
+    dd, ddd, sums = bl.fo_grad_lists(*args, **kw)
+    pdd, pddd, psums = bl.fo_grad_lists_plain(*args, **kw)
+    assert_per_column(dd, pdd, 1e-4)
+    torch.testing.assert_close(sums, psums, rtol=1e-4, atol=1e-6)
+    if rgbd:
+        assert_per_column(ddd, pddd, 1e-4)
+
+
+def test_jvp8_on_card(card):
+    _, d, d_tan, tx0, ty0, pmat = scene_rows(card)
+    n = d.shape[0]
+    outs, touts = bl.blend_lists_jvp8(d, d_tan, tx0[:n], ty0[:n], pmat, W, H)
+    p_outs, p_touts = bl.blend_lists_jvp8_plain(d, d_tan, tx0[:n], ty0[:n],
+                                                pmat, W, H)
+    assert_outs(outs, p_outs)
+    assert_per_column(touts, p_touts, 2e-4)
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(card):
+    d, _, _, tx0, ty0, pmat = scene_rows(card)
+    with pytest.raises(ValueError, match="contiguous"):
+        bl.blend_lists(d.transpose(0, 1).contiguous().transpose(0, 1),
+                       tx0, ty0, pmat, W, H)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        bl.blend_lists(d, tx0.cpu(), ty0, pmat, W, H)
