@@ -10,19 +10,30 @@ JAX. Phases, each of which exits non-zero on failure:
 
 1. build the list-blend kernels from ``monogs_tpu_torch/csrc`` (nvcc for
    sm_90a) and print the build time and the card's name and power limit;
-2. kernel phase: run each kernel on the card at the shapes of monocular
-   tracking (640x480 in 16 px tiles, k_fine 96, a 12 % tile subset), on rows
-   of the main path's scene, and hold it against its plain PyTorch version
-   on the same inputs; time both with CUDA events;
-3. main path: render the 22 frames of a jittered orbit around a
+2. kernel phase: run each kernel on the card at the shapes of its path
+   (640x480 in 16 px tiles, k_fine 96: a 12 % tile subset for tracking, 320
+   and all 1280 tiles for mapping, plus one RGB-D mapping call at the
+   320x240 / k_fine 256 shapes of configs/synthetic/rgbd.yaml), on rows of
+   the main path's scene, and hold it against its plain PyTorch version on
+   the same inputs; time both with CUDA events;
+3. tracking path: render the 22 frames of a jittered orbit around a
    100k-Gaussian synthetic scene through the port's ``render``, track a
    20-frame monocular chain with the shipped tracking configuration
-   (previous tracked pose as the seed), then an 8-frame RGB-D chain. The
-   kernels' launch counters are zeroed just before and read just after.
+   (previous tracked pose as the seed), then an 8-frame RGB-D chain;
+4. mapping path (``bench.py::bench_mapping``'s workload): the scene in a
+   map of capacity 2^17, its positions, colours and opacities perturbed, a
+   window of the chain's frames 0-9 (B = 10, poses 1-4 and exposures 1-9
+   optimised, a tenth of the scene inserted per keyframe): BA at tile_frac
+   0.25 across a densify (iteration 200) and at 1.0, timed by
+   bench_mapping's delta method (at 0.25 the timed iterations include the
+   densify and its list rebuild); a densify with clones and splits held
+   against the same call on the CPU; RGB-D BA; initialisation on one view;
+   covisibility pruning; colour refinement; one profiled BA iteration.
+Each path's launch counters are zeroed just before it and read just after.
 
-Output, one JSON object per line: the main path's metrics, then
+Output, one JSON object per line: each path's metrics, then
 ``{"kernels": [...]}`` (each kernel's time, plain time, bound, error and
-launches on the main path), then the nvidia-smi line, and last
+launches on its path), then the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -66,7 +77,12 @@ def kernel_ops(name, n, e_exp):
     - jvp8, per contributing pair and pose tangent: w_t's log-T term (2) and
       five tangent sums (17); on live pairs also s_t (10), alpha_t (1), the
       carry of log T (2) and w_t's alpha term (2), plus the shared monomials
-      and 1 / (1 - a) once (12).
+      and 1 / (1 - a) once (12);
+    - the other reverse kernels, per contributing pair: wbar over the
+      output columns with a cotangent (a multiply each and the adds
+      between: 5 for the mapping step's r, g, b; 7 with its depth; 8 for
+      the VJP's r, g, b, depth and acc), the suffix (2) and a sum of w g
+      per feature column (6 or 8); live pairs add the same 16 as above.
 
     Work per row or per pixel (the row cotangents, the residual), under 2 %
     of the total at these shapes, is left out: a lower bound.
@@ -80,7 +96,10 @@ def kernel_ops(name, n, e_exp):
         "fo_grad": fo,
         "fo_grad_rgbd": fo + 21 * live + 5 * dead,
         "jvp8": fwd + (12 + 6 * 34) * live + 6 * 19 * dead,
-    }[name]
+        "map_grad": fwd + 29 * live + 13 * dead,
+        "map_grad_rgbd": fwd + 33 * live + 17 * dead,
+        "bwd": fwd + 34 * live + 18 * dead,
+    }[name.split("@")[0]]
 
 
 EXPF_PROBE = r"""
@@ -156,13 +175,29 @@ KERNELS = {
                      "sums rtol 1e-4"),
     "jvp8": (f"{REPLACES}:794 (_jvp8_kernel)",
              "outs as fwd; touts rtol 1e-3 + 2e-4 x channel max"),
+    "bwd": (f"{REPLACES}:451 (_bwd_kernel)",
+            "dd rtol 1e-3 + 1e-4 x column max"),
+    "map_grad": (f"{REPLACES}:636 (_map_grad_kernel)",
+                 "dd rtol 1e-3 + 1e-4 x column max; sums rtol 1e-4 + 1e-4"),
+    "map_grad_rgbd": (f"{REPLACES}:636 (_map_grad_kernel, rgbd)",
+                      "dd rtol 1e-3 + 1e-4 x column max; "
+                      "sums rtol 1e-4 + 1e-4"),
 }
+
+TRACK_KERNELS = ("fwd", "fwd_counts", "fo_grad", "fo_grad_rgbd", "jvp8")
+MAP_KERNELS = ("fwd", "fwd_counts", "bwd", "map_grad", "map_grad_rgbd")
 
 SHAPE = dict(fx=535.4, fy=539.2, cx=320.1, cy=247.6, width=640, height=480)
 N_GAUSS = 100_000
 SCENE_SEED = 4          # see make_bench; --scene-seed draws another
 N_FRAMES = 20           # monocular chain (bench.py)
 N_RGBD_FRAMES = 8
+MAP_CAP = 1 << 17       # bench.py::bench_mapping
+MAP_VIEWS = 10
+MAP_XYZ_NOISE = 0.03    # metres, see map_window
+# the L1 of the window after the 0.25-tile_frac phase must fall below
+# this share of the L1 before it
+MAP_L1_RATIO = 0.95
 
 
 class Failure(Exception):
@@ -318,6 +353,35 @@ def outs_err(torch, got, want):
     return max(e_img, e_dep, e_acc), ok
 
 
+def record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
+                  out_bytes, pairs, e_exp, strict=True):
+    """Time kernel ``name`` (``fn``) and its plain version, compute its
+    bound from this run's pairs and bytes, and add its entry. ``name`` may
+    carry a shape tag after "@"."""
+    kind = name.split("@")[0]
+    torch.cuda.synchronize()
+    check(ok or not strict,
+          f"{name}: kernel disagrees with its plain version "
+          f"(max abs error {err:.3e}; tolerance {KERNELS[kind][1]})")
+    ms = cuda_ms(torch, fn)
+    plain_ms = cuda_ms(torch, plain, reps=20, warmup=1)
+    ops = kernel_ops(name, pairs, e_exp)
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    entries[name] = dict(
+        name=name, route="cuda",
+        source="monogs_tpu_torch/csrc/blend_lists.cu",
+        replaces=KERNELS[kind][0], launches=0, max_abs_err=err,
+        tol=KERNELS[kind][1], ms=ms, plain_ms=plain_ms,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, within_tol=ok, pairs=pairs,
+        bytes=in_bytes + out_bytes, ops=ops, expf_ops=e_exp)
+    log(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
+        f"{entries[name]['bound_ms']:.4f} ms by "
+        f"{entries[name]['bound_by']}, max abs error {err:.3e}")
+
+
 def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
                  strict=True):
     """Run each kernel at the main path's shapes against its plain
@@ -358,27 +422,8 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
     entries = {}
 
     def record(name, fn, plain, err, ok, in_bytes, out_bytes, pairs):
-        torch.cuda.synchronize()
-        check(ok or not strict,
-              f"{name}: kernel disagrees with its plain version "
-              f"(max abs error {err:.3e}; tolerance {KERNELS[name][1]})")
-        ms = cuda_ms(torch, fn)
-        plain_ms = cuda_ms(torch, plain, reps=20, warmup=1)
-        ops = kernel_ops(name, pairs, e_exp)
-        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / FP32_FLOPS_PER_S * 1e3
-        entries[name] = dict(
-            name=name, route="cuda",
-            source="monogs_tpu_torch/csrc/blend_lists.cu",
-            replaces=KERNELS[name][0], launches=0, max_abs_err=err,
-            tol=KERNELS[name][1], ms=ms, plain_ms=plain_ms,
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=None, within_tol=ok, pairs=pairs,
-            bytes=in_bytes + out_bytes, ops=ops, expf_ops=e_exp)
-        log(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
-            f"{entries[name]['bound_ms']:.4f} ms by "
-            f"{entries[name]['bound_by']}, max abs error {err:.3e}")
+        record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
+                      out_bytes, pairs, e_exp, strict)
 
     inputs = (tx0, ty0, pmat)
     # 1. forward blend over the whole frame
@@ -443,6 +488,112 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
     return entries
 
 
+def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
+    """The mapping path's kernels against their plain versions: the blend
+    VJP over the whole frame with a real colour-refinement cotangent (L1
+    of the render against the frame, on a grey background so that the acc
+    column carries one too), and the fused mapping step over 320 tiles
+    (tile_frac 0.25) and all 1280, mono and RGB-D, plus RGB-D at the
+    320x240 / k_fine 256 shapes of configs/synthetic/rgbd.yaml (80 of its
+    320 tiles)."""
+    from monogs_tpu_torch.render import Intrinsics
+    from monogs_tpu_torch.render import blend_lists as bl
+    from monogs_tpu_torch.render import renderer as rr
+    from monogs_tpu_torch.render.renderer import TileLists
+
+    dev = pose.device
+    entries = {}
+
+    def record(name, fn, plain, err, ok, in_bytes, out_bytes, pairs):
+        record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
+                      out_bytes, pairs, e_exp)
+
+    # 1. blend VJP, Tf 1280
+    cfg_t = cfg._replace(with_n_touched=False)
+    W, H = intr.width, intr.height
+    pmat = rr._tile_pmat(cfg, dev)
+    tx0, ty0 = rr._tile_origins(intr, cfg, dev)
+    with torch.no_grad():
+        d = rr.frame_rows(scene, pose, intr, cfg_t)[0]
+        outs = bl.blend_lists(d, tx0, ty0, pmat, W, H)
+        bg = torch.tensor([0.5, 0.5, 0.5], device=dev)
+        colors = outs[..., :3] + (1.0 - outs[..., 4:5]) * bg
+        gt = rr.tile_images(frame.gt_image, intr, cfg)
+        g_col = 0.8 / (3 * W * H) * torch.sign(colors - gt)
+        g_outs = torch.cat([g_col, torch.zeros_like(g_col[..., :1]),
+                            -(g_col * bg).sum(-1, keepdim=True),
+                            torch.zeros_like(g_col)], dim=-1).contiguous()
+    dd = bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W, H)
+    want = bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H)
+    err, ok = per_column_err(torch, dd, want, 1e-4)
+    check(float(torch.abs(want).max()) > 0, "bwd: zero row cotangents")
+    record("bwd", lambda: bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W, H),
+           lambda: bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H),
+           err, ok, nbytes(d, tx0, ty0, pmat, g_outs), nbytes(dd),
+           pair_counts(torch, bl, d, tx0, ty0, pmat, W, H))
+    del dd, want, outs, colors, g_outs
+
+    # 2. fused mapping step
+    def map_grad_case(name, intr_c, cfg_c, n_sub, rgbd):
+        cfg_c = cfg_c._replace(with_n_touched=False)
+        Wc, Hc = intr_c.width, intr_c.height
+        pm = rr._tile_pmat(cfg_c, dev)
+        txf, tyf = rr._tile_origins(intr_c, cfg_c, dev)
+        with torch.no_grad():
+            lists = rr.build_tile_lists(scene, pose, intr_c, cfg_c,
+                                        margin=4.0)
+            g = torch.Generator(device=dev).manual_seed(2)
+            ts = torch.randperm(txf.shape[0], generator=g,
+                                device=dev)[:n_sub]
+            dm = rr.tile_rows(scene, pose, intr_c, cfg_c,
+                              TileLists(idx=lists.idx[ts],
+                                        vld=lists.vld[ts]))
+            if (Wc, Hc) == (W, H):
+                img, dep, msk = (frame.gt_image, frame.gt_depth,
+                                 frame.mapping_mask)
+            else:
+                # the render at the rows' own pose, offset so that no L1
+                # residual sits at 0 (its sign would flip on rounding)
+                out = rr.render(scene, pose, intr_c, cfg_c)
+                img, dep = out.image + 0.03, out.depth + 0.05
+                msk = torch.ones_like(dep)
+            gt_t, mask_t, gtd_t = (
+                rr.tile_images(x, intr_c, cfg_c)[ts].contiguous()
+                for x in (img, msk, dep))
+        if not rgbd:
+            gtd_t = None
+        args = (dm, txf[ts], tyf[ts], pm, gt_t, mask_t,
+                torch.tensor(1.0, device=dev), torch.tensor(0.0, device=dev),
+                Wc, Hc, True, 0.95 if rgbd else 1.0, 1e-8)
+        kw = dict(gtd_t=gtd_t, px_frac=n_sub / txf.shape[0])
+        got, sums = bl.map_grad_lists(*args, **kw)
+        pdd, psums = bl.map_grad_lists_plain(*args, **kw)
+        err, ok = per_column_err(torch, got, pdd, 1e-4)
+        e_s = torch.abs(sums - psums)
+        ok = ok and bool(torch.all(e_s <= 1e-4 * torch.abs(psums) + 1e-4))
+        check(float(psums[:, 0].sum()) > 0, f"{name}: zero residual")
+        record(name, lambda: bl.map_grad_lists(*args, **kw),
+               lambda: bl.map_grad_lists_plain(*args, **kw),
+               max(err, float(e_s.max())), ok,
+               nbytes(dm, txf[ts], tyf[ts], pm, gt_t, mask_t, gtd_t) + 8,
+               nbytes(got, sums),
+               pair_counts(torch, bl, dm, txf[ts], tyf[ts], pm, Wc, Hc))
+
+    n_fine = tx0.shape[0]
+    n_sub = max(8, int(n_fine * 0.25) // 8 * 8)
+    for rgbd in (False, True):
+        base = "map_grad_rgbd" if rgbd else "map_grad"
+        map_grad_case(base, intr, cfg, n_sub, rgbd)
+        map_grad_case(f"{base}@all_tiles", intr, cfg, n_fine, rgbd)
+    intr_s = Intrinsics(fx=320.0, fy=320.0, cx=159.5, cy=119.5, width=320,
+                        height=240)
+    cfg_s = cfg._replace(k_fine=256)
+    n_fine_s = rr._tile_origins(intr_s, cfg_s, dev)[0].shape[0]
+    map_grad_case("map_grad_rgbd@320x240_kf256", intr_s, cfg_s,
+                  max(8, int(n_fine_s * 0.25) // 8 * 8), True)
+    return entries
+
+
 # -------------------------------------------------------------- main path
 
 def track_chain(torch, scene, frames, poses, intr, cfg, tcfg, seed0):
@@ -502,8 +653,10 @@ def main_path(torch, intr, cfg, tcfg, scene, poses_fn):
     bl.reset_launches()
     t0 = time.perf_counter()
     poses = poses_fn(N_FRAMES + 2, 42)
+    # with depth, for the mapping path's RGB-D phase (mono tracking reads
+    # no depth)
     frames, cover = render_frames(torch, scene, poses, intr, cfg,
-                                  with_depth=False)
+                                  with_depth=True)
     render_s = time.perf_counter() - t0
     # first frame: cuBLAS/cuSOLVER handles and the allocator warm up
     track_chain(torch, scene, frames[:3], poses[:3], intr, cfg, tcfg, 1000)
@@ -526,13 +679,15 @@ def main_path(torch, intr, cfg, tcfg, scene, poses_fn):
               f"{name} tracking: mean error {m['err_mm_mean']:.3f} mm is not "
               f"below half of holding the previous pose "
               f"({m['hold_prev_err_mm_mean']:.3f} mm)")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in TRACK_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the tracking path")
     peak = torch.cuda.max_memory_allocated()
     return dict(
         render_frames=len(frames), render_s=render_s, mono=mono, rgbd=rgbd,
         peak_mem_bytes=peak, launches=launches,
-        profile=profile_frame(torch, scene, frames, poses, intr, cfg, tcfg))
+        profile=profile_frame(torch, scene, frames, poses, intr, cfg,
+                              tcfg)), frames, poses
 
 
 def profile_frame(torch, scene, frames, poses, intr, cfg, tcfg):
@@ -541,7 +696,6 @@ def profile_frame(torch, scene, frames, poses, intr, cfg, tcfg):
     kernels summed by class. The profiler slows the host, so wall_ms is a
     profiled frame's; device_busy_ms is the sum of kernel times (one
     stream, so kernels do not overlap)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from monogs_tpu_torch.slam.tracking import track_frame
@@ -555,6 +709,22 @@ def profile_frame(torch, scene, frames, poses, intr, cfg, tcfg):
                         tcfg)
         torch.cuda.synchronize()
         wall_ms = 1000.0 * (time.perf_counter() - t0)
+    t = device_time(prof)
+    if t["device_busy_ms"] == 0:
+        return dict(wall_ms=wall_ms, device_busy_ms="not measured")
+    return dict(wall_ms=wall_ms, iterations=r.fo_iters + r.so_iters,
+                device_idle_share=max(0.0, 1.0 - t["device_busy_ms"]
+                                      / wall_ms), **t)
+
+
+LIST_BLEND = ("::fwd_kernel<", "::fo_grad_kernel<", "::jvp8_kernel(",
+              "::map_grad_kernel<", "::bwd_kernel(")
+
+
+def device_time(prof):
+    """Kernel launches and device time of a profile, summed by class."""
+    from torch.autograd import DeviceType
+
     kernels = {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -564,10 +734,7 @@ def profile_frame(torch, scene, frames, poses, intr, cfg, tcfg):
             us = e.self_cuda_time_total
         kernels[e.key] = (us / 1000.0, e.count)
     busy = sum(ms for ms, _ in kernels.values())
-    if busy == 0:
-        return dict(wall_ms=wall_ms, device_busy_ms="not measured")
-    classes = (("list_blend", ("::fwd_kernel<", "::fo_grad_kernel<",
-                               "::jvp8_kernel(")),
+    classes = (("list_blend", LIST_BLEND),
                ("sort", ("sort", "radix", "Sort")),
                ("elementwise", ("elementwise",)),
                ("reduce", ("reduce",)),
@@ -580,11 +747,314 @@ def profile_frame(torch, scene, frames, poses, intr, cfg, tcfg):
         by_class[cls] += ms
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(
-        wall_ms=wall_ms, iterations=r.fo_iters + r.so_iters,
-        device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / wall_ms),
+        device_busy_ms=busy,
         kernel_launches=sum(c for _, c in kernels.values()),
         device_ms_by_class=by_class,
         top=[dict(name=k[:80], ms=ms, count=c) for k, (ms, c) in top])
+
+
+# ------------------------------------------------------------ mapping path
+
+def map_window(torch, scene, frames, poses, views=MAP_VIEWS,
+               xyz_noise=MAP_XYZ_NOISE):
+    """bench.py::bench_mapping's window: the scene in a map of capacity
+    2^17 with its positions, SH and opacity logits perturbed from a fixed
+    seed, and the first ``views`` frames as the window (pose of views 1-4
+    and exposure of views 1-9 optimised). The scene is inserted in
+    ``views`` equal parts, part v as keyframe v's Gaussians (kf_id v), so
+    that covisibility pruning has Gaussians of the window's newest
+    keyframes to judge. The positions are perturbed by ``xyz_noise``
+    metres, more than one Adam step of the position learning rate (9.2e-3
+    at iteration 190, about 2 px here): from the exact geometry BA's first
+    steps move every visible Gaussian by about that and the L1 rises
+    (PERF.md, Findings)."""
+    from monogs_tpu_torch.models import gaussian_map as gm
+    from monogs_tpu_torch.slam.mapping import CamBatch
+
+    dev = scene.xyz.device
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def noise(x, sd):
+        return x + sd * torch.randn(x.shape, generator=g, device=dev)
+
+    leaves = gm.ParamLeaves(
+        xyz=noise(scene.xyz, xyz_noise), sh=noise(scene.sh, 0.2),
+        log_scale=scene.log_scale, quat=scene.quat,
+        opa_logit=noise(scene.opa_logit, 0.5))
+    m = gm.new_map(MAP_CAP, device=dev)
+    b = views
+    for v, rows in enumerate(torch.tensor_split(
+            torch.arange(scene.xyz.shape[0], device=dev), b)):
+        m = gm.insert(m, gm.ParamLeaves(*(x[rows] for x in leaves)),
+                      rows.shape[0], kf_id=v)
+    f = frames[:b]
+    flags = torch.tensor([False] + [True] * (b - 1), device=dev)
+    cams = CamBatch(
+        gt_image=torch.stack([x.gt_image for x in f]),
+        gt_depth=torch.stack([x.gt_depth for x in f]),
+        mapping_mask=torch.ones((b, 1) + tuple(f[0].gt_image.shape[1:]),
+                                device=dev),
+        T=torch.stack(poses[:b]), ea=torch.ones(b, device=dev),
+        eb=torch.zeros(b, device=dev),
+        valid=torch.ones(b, dtype=torch.bool, device=dev),
+        opt_pose=torch.arange(b, device=dev).lt(5) & flags,
+        opt_exposure=flags)
+    return m, cams
+
+
+def window_l1(torch, m, cams, intr, cfg, monocular=True, alpha=0.95):
+    """The window's mapping loss (mean over views of mapping_loss_rgb[d]
+    of a full render at the current poses and exposures). A check, not
+    the mapping path: its renders' launches are not counted."""
+    from monogs_tpu_torch.ops import losses
+    from monogs_tpu_torch.render import blend_lists as bl
+    from monogs_tpu_torch.render import render
+
+    counts = dict(bl.LAUNCHES)
+    tot = 0.0
+    with torch.no_grad():
+        for v in range(cams.T.shape[0]):
+            out = render(m.render_view(), cams.T[v], intr,
+                         cfg._replace(with_n_touched=False))
+            if monocular:
+                loss = losses.mapping_loss_rgb(
+                    out.image, cams.gt_image[v], cams.mapping_mask[v],
+                    cams.ea[v], cams.eb[v])
+            else:
+                loss = losses.mapping_loss_rgbd(
+                    out.image, out.depth, cams.gt_image[v], cams.gt_depth[v],
+                    cams.mapping_mask[v], cams.ea[v], cams.eb[v], alpha)
+            tot += float(loss)
+    bl.LAUNCHES.update(counts)
+    return tot / cams.T.shape[0]
+
+
+def check_finite_map(torch, m, cams, what):
+    for k, x in zip(m.params._fields, m.params):
+        check(bool(torch.isfinite(x).all()), f"{what}: non-finite {k}")
+    check(bool(torch.isfinite(cams.T).all()), f"{what}: non-finite pose")
+    check(bool(torch.isfinite(cams.ea).all() & torch.isfinite(cams.eb).all()),
+          f"{what}: non-finite exposure")
+
+
+def densify_check(torch, m, gen):
+    """``densify_and_prune`` on the card with clones and splits, held
+    against the same call on the CPU. At 640x480 the reference's threshold
+    (2e-4) selects no Gaussian (PERF.md), so this call takes its limits
+    from the densification statistics ``m`` gathered: the 98th percentile
+    of the seen Gaussians' mean screen-space gradient, and a size limit
+    (percent_dense x extent) midway between two neighbouring largest
+    scales near the median of those selected, so that about half clone
+    and half split and no Gaussian sits on the size limit, where the
+    card's and the CPU's exp could round to different sides."""
+    from monogs_tpu_torch.models import gaussian_map as gm
+
+    h = gm.MapHyper()
+    seen = m.active & (m.denom > 0)
+    grads = m.grad_accum / torch.clamp(m.denom, min=1e-12)
+    q = torch.quantile(grads[seen], torch.tensor(
+        [0.5, 0.98, 1.0], device=grads.device)).tolist()
+    hot = seen & (grads >= q[1])
+    max_scale = torch.exp(m.params.log_scale).max(-1).values
+    s = torch.sort(max_scale[hot]).values
+    k = s.shape[0] // 2
+    extent = float(0.5 * (s[k - 1] + s[k])) / h.percent_dense
+    n_clone = int((hot & (max_scale <= h.percent_dense * extent)).sum())
+    n_split = int(hot.sum()) - n_clone
+    samples = torch.randn((2, 4096, 3), generator=gen, device=m.active.device)
+    args = (q[1], 0.7, extent, 20, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = gm.densify_and_prune(m, None, *args, samples=samples)
+    torch.cuda.synchronize()
+    ms = 1000.0 * (time.perf_counter() - t0)
+    want = gm.densify_and_prune(m.to("cpu"), None, *args,
+                                samples=samples.cpu())
+    got = got.to("cpu")
+    check(n_clone > 0 and n_split > 0,
+          f"densify check: {n_clone} clones, {n_split} splits")
+    check(int(got.n_active) > int(m.n_active),
+          f"densify check: n_active {int(m.n_active)} -> "
+          f"{int(got.n_active)}")
+    for k_ in ("active", "kf_id", "n_obs"):
+        check(bool(torch.equal(getattr(got, k_), getattr(want, k_))),
+              f"densify check: {k_} differs between the card and the CPU")
+    for k_, x, y in zip(got.params._fields, got.params, want.params):
+        check(bool(torch.allclose(x, y, rtol=1e-5, atol=1e-6)),
+              f"densify check: {k_} differs between the card and the CPU "
+              f"(max {float(torch.abs(x - y).max()):.3e})")
+    return dict(grad_p50=q[0], grad_p98=q[1], grad_max=q[2],
+                n_seen=int(seen.sum()), n_clone=n_clone, n_split=n_split,
+                n_active_before=int(m.n_active),
+                n_active_after=int(got.n_active), ms=ms)
+
+
+def mapping_path(torch, intr, cfg, scene, frames, poses):
+    """Drive the port's mapping on the card (see the module docstring);
+    returns (metrics, launches)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from monogs_tpu_torch.models import gaussian_map as gm
+    from monogs_tpu_torch.render import blend_lists as bl
+    from monogs_tpu_torch.slam import mapping as mp
+
+    dev = scene.xyz.device
+    hyper = gm.MapHyper()
+    mc = mp.MapConfig(monocular=True, window_size=8, pose_window=5,
+                      tile_frac=0.25)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    m0, cams = map_window(torch, scene, frames, poses, views=MAP_VIEWS)
+
+    def run_map(n, it0, mcfg=mc, cams_=cams, init=False):
+        torch.cuda.synchronize()
+        before = dict(bl.LAUNCHES)
+        t0 = time.perf_counter()
+        r = mp.map_iters(m0, cams_, n, it0, gen, intr, cfg, mcfg, hyper,
+                         initialization=init)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return secs, r, {k: bl.LAUNCHES[k] - before[k] for k in before}
+
+    # first call: the allocator and library handles warm up
+    run_map(1, 100)
+    torch.cuda.reset_peak_memory_stats()
+    bl.reset_launches()
+    out = {}
+
+    # 1. mono, tile_frac 0.25, from iteration 190: the 35-iteration run
+    # densifies at 200 and rebuilds its lists after it; ms per iteration
+    # by bench_mapping's delta method, (t(35) - t(5)) / 30, so the 30
+    # timed iterations include that densify and rebuild
+    l1_before = window_l1(torch, m0, cams, intr, cfg)
+    t_lo, _, n_lo = run_map(5, 190)
+    t_hi, ra, n_hi = run_map(35, 190)
+    check_finite_map(torch, ra.m, ra.cams, "tile_frac 0.25")
+    l1_after = window_l1(torch, ra.m, ra.cams, intr, cfg)
+    check(n_lo["map_grad"] + n_hi["map_grad"] == MAP_VIEWS * 40,
+          f"map_grad launched {n_lo['map_grad'] + n_hi['map_grad']} times "
+          f"in 40 iterations of {MAP_VIEWS} views")
+    check(l1_after < MAP_L1_RATIO * l1_before,
+          f"mapping L1 {l1_after:.6f} after 35 iterations is not below "
+          f"{MAP_L1_RATIO} x {l1_before:.6f} before")
+    pose_moved = [float(torch.abs(ra.cams.T[v] - cams.T[v]).max())
+                  for v in range(MAP_VIEWS)]
+    out["tile_frac_0.25"] = dict(
+        ms_per_iter=1000.0 * (t_hi - t_lo) / 30, s_5=t_lo, s_35=t_hi,
+        l1_before=l1_before, l1_after=l1_after,
+        n_active_before=int(m0.n_active), n_active_after=int(ra.m.n_active),
+        it_count=ra.it_count, pose_moved_max=pose_moved)
+    # iteration 200's densify, at the reference's limits, selects nothing
+    # at 640x480; this one takes its limits from iterations 201-225
+    out["densify_check"] = densify_check(torch, ra.m, gen)
+
+    # 2. mono, all tiles: (t(12) - t(2)) / 10, iterations 101-112
+    t_lo, _, n_lo = run_map(2, 100, mc._replace(tile_frac=1.0))
+    t_hi, rb, n_hi = run_map(12, 100, mc._replace(tile_frac=1.0))
+    check_finite_map(torch, rb.m, rb.cams, "tile_frac 1.0")
+    check(n_lo["map_grad"] + n_hi["map_grad"] == MAP_VIEWS * 14,
+          "map_grad launches at tile_frac 1.0")
+    out["tile_frac_1.0"] = dict(ms_per_iter=1000.0 * (t_hi - t_lo) / 10,
+                                s_2=t_lo, s_12=t_hi)
+
+    # 3. RGB-D, tile_frac 0.25
+    mc_d = mc._replace(monocular=False)
+    l1d_before = window_l1(torch, m0, cams, intr, cfg, monocular=False)
+    t_d, rd, n_d = run_map(10, 100, mc_d)
+    check_finite_map(torch, rd.m, rd.cams, "RGB-D")
+    check(n_d["map_grad_rgbd"] == MAP_VIEWS * 10 and n_d["map_grad"] == 0,
+          f"RGB-D mapping launches {n_d}")
+    out["rgbd"] = dict(
+        s_10=t_d, l1_before=l1d_before,
+        l1_after=window_l1(torch, rd.m, rd.cams, intr, cfg, monocular=False))
+
+    # 4. initialisation on one view (no pose or exposure optimisation)
+    one = type(cams)(*(x[:1] for x in cams))
+    t_i, ri, n_i = run_map(5, 0, mc, one, init=True)
+    check_finite_map(torch, ri.m, ri.cams, "initialization")
+    check(n_i["map_grad"] == 5, f"initialization launches {n_i}")
+    check(bool(torch.equal(ri.cams.T, one.T)), "initialization moved a pose")
+    out["initialization"] = dict(s_5=t_i)
+
+    # 5. covisibility pruning of the 0.25 run's map (window keyframe ids
+    # 0-9: Gaussians of keyframes 7-9 seen by at most 3 views go)
+    kf_ids = torch.arange(MAP_VIEWS, device=dev)
+    mp_, n_obs = mp.covisibility_prune(ra.m, ra.visibility, kf_ids, True, mc)
+    gone = ra.m.active & ~mp_.active
+    check(int(mp_.n_active) < int(ra.m.n_active),
+          "covisibility pruning removed nothing")
+    check(bool(torch.all((ra.m.kf_id[gone] >= MAP_VIEWS - 3)
+                         & (n_obs[gone] <= 3))),
+          "covisibility pruning removed a Gaussian it should have kept")
+    out["covisibility_prune"] = dict(
+        n_active_before=int(ra.m.n_active), n_active_after=int(mp_.n_active),
+        visible_views_mean=float(n_obs[ra.m.active].float().mean()))
+
+    # 6. colour refinement, 20 iterations over the window's views
+    torch.cuda.synchronize()
+    before = dict(bl.LAUNCHES)
+    t0 = time.perf_counter()
+    mr = mp.color_refinement_iters(mp_, cams, 20, gen, intr, cfg, mc, hyper)
+    torch.cuda.synchronize()
+    t_r = time.perf_counter() - t0
+    check_finite_map(torch, mr, cams, "colour refinement")
+    check(bl.LAUNCHES["bwd"] - before["bwd"] == 20,
+          f"bwd launched {bl.LAUNCHES['bwd'] - before['bwd']} times in 20 "
+          f"refinement iterations")
+    out["color_refinement"] = dict(ms_per_iter=1000.0 * t_r / 20)
+    torch.cuda.synchronize()
+    launches = dict(bl.LAUNCHES)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    for name in MAP_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the mapping path")
+
+    # host syncs of a call (torch.cuda sync debug mode warns at each, with
+    # the Python line that caused it), for 1 and 3 iterations: the
+    # difference is per iteration
+    syncs, sites = {}, {}
+    for n in (1, 3):
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run_map(n, 100)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        hits = [x for x in w
+                if str(x.message).startswith("called a synchronizing")]
+        syncs[n] = len(hits)
+        for x in hits:
+            k = f"{Path(x.filename).name}:{x.lineno}"
+            sites[k] = sites.get(k, 0) + 1
+    out["host_syncs"] = dict(call_1=syncs[1], call_3=syncs[3],
+                             per_iter=(syncs[3] - syncs[1]) / 2, sites=sites)
+
+    # one profiled BA iteration (tile_frac 0.25): a 3-iteration call less
+    # a 1-iteration call, halved
+    prof_ = {}
+    for n in (1, 3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_map(n, 100)
+            wall = 1000.0 * (time.perf_counter() - t0)
+        prof_[n] = dict(wall_ms=wall, **device_time(prof))
+    a, b = prof_[1], prof_[3]
+    busy = (b["device_busy_ms"] - a["device_busy_ms"]) / 2
+    wall = (b["wall_ms"] - a["wall_ms"]) / 2
+    out["profile_iteration"] = dict(
+        wall_ms=wall, device_busy_ms=busy if busy > 0 else "not measured",
+        device_idle_share=max(0.0, 1.0 - busy / wall) if busy > 0
+        else "not measured",
+        kernel_launches=(b["kernel_launches"] - a["kernel_launches"]) / 2,
+        device_ms_by_class={k: (b["device_ms_by_class"][k]
+                                - a["device_ms_by_class"][k]) / 2
+                            for k in a["device_ms_by_class"]},
+        top_3_iter_call=b["top"])
+    return out, launches
 
 
 def run(scene_seed):
@@ -617,13 +1087,23 @@ def run(scene_seed):
     log(f"expf: {e_exp} float32 operations (SASS difference {sass})")
     entries = kernel_phase(torch, intr, cfg, tcfg, scene, poses[1], frame,
                            e_exp)
-    summary = main_path(torch, intr, cfg, tcfg, scene, poses_fn)
+    entries.update(mapping_kernel_phase(torch, intr, cfg, scene, poses[1],
+                                        frame, e_exp))
+    summary, frames, chain_poses = main_path(torch, intr, cfg, tcfg, scene,
+                                             poses_fn)
+    mapping, map_launches = mapping_path(torch, intr, cfg, scene, frames,
+                                         chain_poses)
     for name, e in entries.items():
-        e["launches"] = summary["launches"][name]
+        kind = name.split("@")[0]
+        e["launches"] = (summary["launches"][kind] if kind in TRACK_KERNELS
+                         else map_launches[kind])
     summary["build_s"] = build_s
     summary["scene_seed"] = scene_seed
     summary["device"] = smi
+    mapping["launches"] = map_launches
+    mapping["device"] = smi
     print(json.dumps({"main_path": summary}), flush=True)
+    print(json.dumps({"mapping_path": mapping}), flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,13 @@
 // Hand-written Hopper (sm_90a) kernels for the per-tile list blend.
 //
-// Counterparts of the four Pallas TPU kernels of the tracking path in
-// monogs_tpu/render/pallas_lists.py:
+// Counterparts of the six Pallas TPU kernels of the tracking and mapping
+// paths in monogs_tpu/render/pallas_lists.py:
 //   blend_fwd (COUNTS=false)  <- _fwd_kernel         (blend_lists_pallas)
 //   blend_fwd (COUNTS=true)   <- _fwd_counts_kernel  (blend_lists_pallas_counts)
 //   blend_fo_grad             <- _fo_grad_kernel     (fo_grad_lists_pallas)
 //   blend_jvp8                <- _jvp8_kernel        (blend_lists_jvp8)
+//   blend_bwd                 <- _bwd_kernel         (blend_lists_pallas VJP)
+//   blend_map_grad            <- _map_grad_kernel    (map_grad_lists_pallas)
 //
 // Input contract (unchanged from the TPU kernels): d [T, K, 16] packed
 // depth-ordered rows per tile with the column layout of renderer._F (u, v,
@@ -24,7 +26,8 @@
 // Bound on the H100: every (row, pixel) pair a pixel walks costs 26 f32
 // operations to evaluate alpha (expf is 10 of them); a contributing pair
 // adds 13 for the forward blend, 43 (64 for RGB-D) for the fused
-// first-order step and 229 for the six-tangent pass. At the tracking
+// first-order step, about as much for the fused mapping step and the blend
+// VJP, and 229 for the six-tangent pass. At the tracking and mapping
 // shapes that is 20-49 operations per byte moved, at or above the card's
 // FP32-to-HBM ratio of 20, so the FP32 pipes, not HBM, bound every kernel
 // (chip_smoke.py counts the pairs). The per-pixel early exit
@@ -166,61 +169,75 @@ __global__ void fwd_kernel(const float* __restrict__ d,
   store8(outs + ((size_t)t * P + p) * 8, o);
 }
 
-// ------------------------------------------------- fused first-order step --
-// Forward blend, exposure + masked signed-sqrt Huber residual, analytic
-// output cotangents, reverse blend, per-row reductions. RGBD adds the second
-// reverse chain of the (globally normalized) depth term.
+// ------------------------------------------------------- reverse machinery --
+// Shared by the three kernels that pull output cotangents back to the rows
+// (fused first-order step, fused mapping step, blend VJP): a forward pass
+// that stores the transmittance at each KC-row chunk entry, then a
+// back-to-front pass per chunk that recomputes the chunk's per-row T_excl
+// from its checkpoint, carries the suffix sum(wbar * w) and reduces each
+// row's six conic moments and its feature sums deterministically (warp
+// shuffles, then a fixed-order sum over the warps in shared memory). No
+// atomics: each CTA owns its tile's rows.
 //
-// Shared memory: rows [KC][F] | ck [nch][P] transmittance at each chunk
-// entry | tex [KC][P] per-row T_excl of the chunk being reversed |
-// red [KC][nw][NV] per-warp row sums | bsum [nw][5].
-template <bool RGBD>
-__global__ void fo_grad_kernel(
-    const float* __restrict__ d, const float* __restrict__ tx0,
-    const float* __restrict__ ty0, const float* __restrict__ pmat,
-    const float* __restrict__ gt, const float* __restrict__ mask,
-    const float* __restrict__ gtd, const float* __restrict__ sc,
-    float* __restrict__ dd, float* __restrict__ dd_dep,
-    float* __restrict__ sums, int kf, int width, int height, int use_huber,
-    float delta, float two_delta, float delta_sq, float eps) {
-  constexpr int NV = RGBD ? 17 : 10;
-  extern __shared__ float smem[];
-  const int P = blockDim.x;
-  const int nw = P >> 5;
-  const int nch = (kf + KC - 1) / KC;
-  float* rows = smem;
-  float* ck = rows + KC * F;
-  float* tex = ck + nch * P;
-  float* red = tex + KC * P;
-  float* bsum = red + KC * nw * NV;
+// Shared memory (floats): rows [KC][F] | ck [nch][P] | tex [KC][P] |
+// red [KC][nw][NV] per-warp row sums | bsum [nw][8] per-warp tile sums.
 
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int lane = p & 31, warp = p >> 5;
-  const float x0 = tx0[t], y0 = ty0[t];
-  const float pxl = pmat[3 * P + p], pyl = pmat[4 * P + p];
+struct Tile {
+  int t, p, lane, warp, nw, P;
+  float x0, y0, pxl, pyl;
   float pm[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) pm[j] = pmat[j * P + p];
-  const bool pix_ok = (x0 + pxl <= (float)(width - 1)) &&
-                      (y0 + pyl <= (float)(height - 1));
-  const float* dt = d + (size_t)t * kf * F;
+  bool pix_ok;
+  const float* dt;  // this tile's rows [kf][F]
+};
 
-  // ---- forward: outputs, chunk-entry checkpoints, first terminated row
+__device__ __forceinline__ Tile load_tile(const float* d, const float* tx0,
+                                          const float* ty0, const float* pmat,
+                                          int kf, int width, int height) {
+  Tile c;
+  c.P = blockDim.x;
+  c.nw = c.P >> 5;
+  c.t = blockIdx.x;
+  c.p = threadIdx.x;
+  c.lane = c.p & 31;
+  c.warp = c.p >> 5;
+  c.x0 = tx0[c.t];
+  c.y0 = ty0[c.t];
+#pragma unroll
+  for (int j = 0; j < 6; ++j) c.pm[j] = pmat[j * c.P + c.p];
+  c.pxl = c.pm[3];
+  c.pyl = c.pm[4];
+  c.pix_ok = (c.x0 + c.pxl <= (float)(width - 1)) &&
+             (c.y0 + c.pyl <= (float)(height - 1));
+  c.dt = d + (size_t)c.t * kf * F;
+  return c;
+}
+
+__host__ __device__ constexpr int n_chunks(int kf) {
+  return (kf + KC - 1) / KC;
+}
+
+// Forward blend of the pixel's rows into o[5] (r, g, b, depth, acc),
+// storing the transmittance at each chunk entry in ck; returns the index of
+// the row at which the pixel terminates (kf if it never does). Every thread
+// of the CTA must call it: it stages rows between barriers.
+__device__ __forceinline__ int forward_checkpointed(const Tile& c,
+                                                    float* rows, float* ck,
+                                                    int kf, float o[5]) {
   float T = 1.0f;
-  float o[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 5; ++j) o[j] = 0.f;
   int kend = kf;
-  for (int c = 0; c < nch; ++c) {
-    const int k0 = c * KC;
+  for (int ch = 0; ch < n_chunks(kf); ++ch) {
+    const int k0 = ch * KC;
     const int n = min(KC, kf - k0);
-    ck[c * P + p] = T;
+    ck[ch * c.P + c.p] = T;
     __syncthreads();
-    stage_rows(rows, dt + (size_t)k0 * F, n * F);
+    stage_rows(rows, c.dt + (size_t)k0 * F, n * F);
     __syncthreads();
     if (kend < kf) continue;
     for (int i = 0; i < n; ++i) {
       const float* r = rows + i * F;
-      const RowEval e = eval_row(r, x0, y0, pxl, pyl, pix_ok);
+      const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
       if (!e.ok) continue;
       const float test = T * (1.0f - e.alpha);
       if (test < T_EPS) {
@@ -236,19 +253,199 @@ __global__ void fo_grad_kernel(
       T = test;
     }
   }
+  return kend;
+}
+
+// sums[t][0..7] = the CTA's sums of part[0..NS-1] (zero beyond NS).
+template <int NS>
+__device__ __forceinline__ void tile_sums(const Tile& c, const float* part,
+                                          float* bsum, float* sums) {
+  static_assert(NS <= 8, "at most 8 per-tile sums");
+  // every lane holds the warp's sum after the butterfly and stores it to
+  // the same address: a lane-0 guard here lets the compiler unswitch the
+  // surrounding code on the lane, and the shuffles then run diverged
+#pragma unroll
+  for (int j = 0; j < NS; ++j) bsum[c.warp * 8 + j] = warp_sum(part[j]);
+  __syncthreads();
+  if (c.p < 8) {
+    float v = 0.f;
+    if (c.p < NS)
+      for (int w = 0; w < c.nw; ++w) v += bsum[w * 8 + c.p];
+    sums[(size_t)c.t * 8 + c.p] = v;
+  }
+}
+
+// Row cotangent of the packed columns from the row's reduced conic moments
+// G[0..5] (sums of sbar * (px^2, px py, py^2, px, py, 1)) and its feature
+// sums; writes the 16 columns of one row.
+__device__ __forceinline__ void write_row(float* dst, const float* r,
+                                          float x0, float y0, const float* G,
+                                          float gr, float gg, float gb,
+                                          float gz) {
+  const float a = r[CA], b = r[CB], cc = r[CC];
+  const float ul = r[CU] - x0, vl = r[CV] - y0;
+  float out[F];
+#pragma unroll
+  for (int j = 0; j < F; ++j) out[j] = 0.f;
+  out[CU] = a * G[3] + b * G[4] - (a * ul + b * vl) * G[5];
+  out[CV] = b * G[3] + cc * G[4] - (b * ul + cc * vl) * G[5];
+  out[CA] = -0.5f * G[0] + ul * G[3] - 0.5f * ul * ul * G[5];
+  out[CB] = -G[1] + vl * G[3] + ul * G[4] - ul * vl * G[5];
+  out[CC] = -0.5f * G[2] + vl * G[4] - 0.5f * vl * vl * G[5];
+  out[LOGO] = G[5];
+  out[R0] = gr;
+  out[G0] = gg;
+  out[B0] = gb;
+  out[CZ] = gz;
+  float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    d4[j] = make_float4(out[4 * j], out[4 * j + 1], out[4 * j + 2],
+                        out[4 * j + 3]);
+}
+
+// Values each pixel reduces per row: six conic moments and the r, g, b
+// feature sums, the depth feature sum when DEP, and for DEPCHAIN a second,
+// depth-only chain (six moments and its depth sum).
+template <bool DEP, bool DEPCHAIN>
+struct RevSpec {
+  static constexpr int NV0 = DEP ? 10 : 9;
+  static constexpr int NV = NV0 + (DEPCHAIN ? 7 : 0);
+};
+
+// Reverse blend, back to front, chunk by chunk from the checkpoints.
+// g[5]: this pixel's output cotangent (r, g, b, depth, acc); the depth entry
+// is read only when DEP. gd: the depth-only second chain's cotangent when
+// DEPCHAIN. Writes dd (and dd_dep) [kf][F] of this tile.
+template <bool DEP, bool DEPCHAIN>
+__device__ __forceinline__ void reverse_blend(const Tile& c, float* rows,
+                                              const float* ck, float* tex,
+                                              float* red, int kf, int kend,
+                                              const float g[5], float gd,
+                                              float* dd, float* dd_dep) {
+  using S_ = RevSpec<DEP, DEPCHAIN>;
+  constexpr int NV0 = S_::NV0, NV = S_::NV;
+  float S = 0.f, Sd = 0.f;  // suffix sums of wbar * w (each chain)
+  for (int ch = n_chunks(kf) - 1; ch >= 0; --ch) {
+    const int k0 = ch * KC;
+    const int n = min(KC, kf - k0);
+    __syncthreads();
+    stage_rows(rows, c.dt + (size_t)k0 * F, n * F);
+    __syncthreads();
+    float Tc = ck[ch * c.P + c.p];
+    for (int i = 0; i < n; ++i) {
+      tex[i * c.P + c.p] = Tc;
+      if (k0 + i < kend) {
+        const RowEval e =
+            eval_row(rows + i * F, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
+        Tc *= (1.0f - e.alpha);
+      }
+    }
+    for (int i = n - 1; i >= 0; --i) {
+      const float* r = rows + i * F;
+      const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
+      const bool contrib = e.ok && (k0 + i < kend);
+      const float tx = tex[i * c.P + c.p];
+      const float om = 1.0f - e.alpha;
+      const float w = contrib ? e.alpha * tx : 0.0f;
+      const bool live = e.ok && (e.alpha < 0.99f);
+      float v[NV];
+      {
+        float wbar = r[R0] * g[0] + r[G0] * g[1] + r[B0] * g[2];
+        if constexpr (DEP) wbar += r[CZ] * g[3];
+        wbar += g[4];
+        const float obar = S / om;
+        const float abar = (contrib ? tx * wbar : 0.0f) - obar;
+        S += wbar * w;
+        const float sbar = live ? e.alpha * abar : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 6; ++j) v[j] = sbar * c.pm[j];
+        v[6] = w * g[0];
+        v[7] = w * g[1];
+        v[8] = w * g[2];
+        if constexpr (DEP) v[9] = w * g[3];
+      }
+      if constexpr (DEPCHAIN) {
+        const float wbar = r[CZ] * gd;
+        const float obar = Sd / om;
+        const float abar = (contrib ? tx * wbar : 0.0f) - obar;
+        Sd += wbar * w;
+        const float sbar = live ? e.alpha * abar : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 6; ++j) v[NV0 + j] = sbar * c.pm[j];
+        v[NV0 + 6] = w * gd;
+      }
+      // stored by every lane, unguarded (see tile_sums)
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        red[(i * c.nw + c.warp) * NV + j] = warp_sum(v[j]);
+    }
+    __syncthreads();
+    for (int i = c.p; i < n; i += c.P) {
+      const float* r = rows + i * F;
+      float tot[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float s = 0.f;
+        for (int w = 0; w < c.nw; ++w) s += red[(i * c.nw + w) * NV + j];
+        tot[j] = s;
+      }
+      const size_t row = ((size_t)c.t * kf + k0 + i) * F;
+      write_row(dd + row, r, c.x0, c.y0, tot, tot[6], tot[7], tot[8],
+                DEP ? tot[NV0 - 1] : 0.0f);
+      if constexpr (DEPCHAIN)
+        write_row(dd_dep + row, r, c.x0, c.y0, tot + NV0, 0.f, 0.f, 0.f,
+                  tot[NV0 + 6]);
+    }
+  }
+}
+
+// Shared memory of a reverse kernel, in bytes.
+size_t reverse_smem(int kf, int p, int nv) {
+  const int nw = p / 32;
+  return (size_t)(KC * F + n_chunks(kf) * p + KC * p + KC * nw * nv +
+                  nw * 8) *
+         sizeof(float);
+}
+
+// ------------------------------------------------- fused first-order step --
+// Forward blend, exposure + masked signed-sqrt Huber residual, analytic
+// output cotangents, reverse blend. RGBD adds the second reverse chain of
+// the (globally normalized) depth term.
+template <bool RGBD>
+__global__ void fo_grad_kernel(
+    const float* __restrict__ d, const float* __restrict__ tx0,
+    const float* __restrict__ ty0, const float* __restrict__ pmat,
+    const float* __restrict__ gt, const float* __restrict__ mask,
+    const float* __restrict__ gtd, const float* __restrict__ sc,
+    float* __restrict__ dd, float* __restrict__ dd_dep,
+    float* __restrict__ sums, int kf, int width, int height, int use_huber,
+    float delta, float two_delta, float delta_sq, float eps) {
+  constexpr int NV = RevSpec<false, RGBD>::NV;
+  extern __shared__ float smem[];
+  const Tile c = load_tile(d, tx0, ty0, pmat, kf, width, height);
+  float* rows = smem;
+  float* ck = rows + KC * F;
+  float* tex = ck + n_chunks(kf) * c.P;
+  float* red = tex + KC * c.P;
+  float* bsum = red + KC * c.nw * NV;
+
+  float o[5];
+  const int kend = forward_checkpointed(c, rows, ck, kf, o);
 
   // ---- residual chain and output cotangents (ops/losses semantics)
+  const size_t px = (size_t)c.t * c.P + c.p;
   const float e_a = fabsf(sc[0]) + eps;
   const float e_b = sc[1];
   const float acc = o[4];
-  const float mk = mask[(size_t)t * P + p];
+  const float mk = mask[px];
   const float am = acc * mk;
   float g[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // d(sum hub^2)/d(r, g, b, -, acc)
   float part[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // sumsq, l1, gea, geb, sd
 #pragma unroll
   for (int ch = 0; ch < 3; ++ch) {
     const float col = o[ch];
-    const float diff = (e_a * col + e_b) - gt[((size_t)t * P + p) * 3 + ch];
+    const float diff = (e_a * col + e_b) - gt[px * 3 + ch];
     const float r = am * diff;
     const float ax = fabsf(r);
     float hub = r, slope = 1.0f;
@@ -268,121 +465,100 @@ __global__ void fo_grad_kernel(
   }
   float gd3 = 0.f;
   if constexpr (RGBD) {
-    const float gz = gtd[(size_t)t * P + p];
+    const float gz = gtd[px];
     const bool dm = (gz > 0.01f) && (acc > 0.95f);
     const float r_d = dm ? o[3] - gz : 0.0f;
     gd3 = 2.0f * r_d;
     part[4] = r_d * r_d;
   }
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    const float v = warp_sum(part[j]);
-    if (lane == 0) bsum[warp * 5 + j] = v;
-  }
-  __syncthreads();
-  if (p < 8) {
-    float v = 0.f;
-    if (p < 5)
-      for (int w = 0; w < nw; ++w) v += bsum[w * 5 + p];
-    sums[(size_t)t * 8 + p] = v;
-  }
+  tile_sums<5>(c, part, bsum, sums);
+  reverse_blend<false, RGBD>(c, rows, ck, tex, red, kf, kend, g, gd3, dd,
+                             dd_dep);
+}
 
-  // ---- reverse blend, back to front, chunk by chunk from the checkpoints
-  float S = 0.f, Sd = 0.f;  // suffix sums of wbar * w (rgb and depth chains)
-  for (int c = nch - 1; c >= 0; --c) {
-    const int k0 = c * KC;
-    const int n = min(KC, kf - k0);
-    __syncthreads();
-    stage_rows(rows, dt + (size_t)k0 * F, n * F);
-    __syncthreads();
-    float Tc = ck[c * P + p];
-    for (int i = 0; i < n; ++i) {
-      tex[i * P + p] = Tc;
-      if (k0 + i < kend) {
-        const RowEval e = eval_row(rows + i * F, x0, y0, pxl, pyl, pix_ok);
-        Tc *= (1.0f - e.alpha);
-      }
-    }
-    for (int i = n - 1; i >= 0; --i) {
-      const float* r = rows + i * F;
-      const RowEval e = eval_row(r, x0, y0, pxl, pyl, pix_ok);
-      const bool contrib = e.ok && (k0 + i < kend);
-      const float tx = tex[i * P + p];
-      const float om = 1.0f - e.alpha;
-      const float w = contrib ? e.alpha * tx : 0.0f;
-      const bool live = e.ok && (e.alpha < 0.99f);
-      float v[NV];
-      {
-        const float wbar =
-            r[R0] * g[0] + r[G0] * g[1] + r[B0] * g[2] + g[4];
-        const float obar = S / om;
-        const float abar = (contrib ? tx * wbar : 0.0f) - obar;
-        S += wbar * w;
-        const float sbar = live ? e.alpha * abar : 0.0f;
+// --------------------------------------------------- fused mapping step --
+// Forward blend, masked L1 residual (exposure unless initialising), its
+// sign as the output cotangent with the mean normalisers and the RGB-D mix
+// applied, reverse blend. Mapping's normalisers are constants, so even
+// RGB-D needs one reverse chain: the depth term is the output cotangent's
+// depth column. sums: (sum |r_rgb|, sum |r_d|, sum sgn mask col,
+// sum sgn mask, 0, 0, 0, 0); the caller applies the weight and sign(ea) to
+// the exposure sums.
+template <bool RGBD>
+__global__ void map_grad_kernel(
+    const float* __restrict__ d, const float* __restrict__ tx0,
+    const float* __restrict__ ty0, const float* __restrict__ pmat,
+    const float* __restrict__ gt, const float* __restrict__ mask,
+    const float* __restrict__ gtd, const float* __restrict__ sc,
+    float* __restrict__ dd, float* __restrict__ sums, int kf, int width,
+    int height, int use_exposure, float w_rgb, float w_dep, float eps) {
+  constexpr int NV = RevSpec<RGBD, false>::NV;
+  extern __shared__ float smem[];
+  const Tile c = load_tile(d, tx0, ty0, pmat, kf, width, height);
+  float* rows = smem;
+  float* ck = rows + KC * F;
+  float* tex = ck + n_chunks(kf) * c.P;
+  float* red = tex + KC * c.P;
+  float* bsum = red + KC * c.nw * NV;
+
+  float o[5];
+  const int kend = forward_checkpointed(c, rows, ck, kf, o);
+
+  const size_t px = (size_t)c.t * c.P + c.p;
+  const float e = use_exposure ? fabsf(sc[0]) + eps : 1.0f;
+  const float mk = mask[px];
+  const float ge = w_rgb * e;
+  float g[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float part[4] = {0.f, 0.f, 0.f, 0.f};  // l_rgb, l_dep, gea, geb
 #pragma unroll
-        for (int j = 0; j < 6; ++j) v[j] = sbar * pm[j];
-        v[6] = w * g[0];
-        v[7] = w * g[1];
-        v[8] = w * g[2];
-        v[9] = 0.0f;  // mono output cotangent has no depth column
-      }
-      if constexpr (RGBD) {
-        const float wbar = r[CZ] * gd3;
-        const float obar = Sd / om;
-        const float abar = (contrib ? tx * wbar : 0.0f) - obar;
-        Sd += wbar * w;
-        const float sbar = live ? e.alpha * abar : 0.0f;
-#pragma unroll
-        for (int j = 0; j < 6; ++j) v[10 + j] = sbar * pm[j];
-        v[NV - 1] = w * gd3;
-      }
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        const float s = warp_sum(v[j]);
-        if (lane == 0) red[(i * nw + warp) * NV + j] = s;
-      }
-    }
-    __syncthreads();
-    for (int i = p; i < n; i += P) {
-      const float* r = rows + i * F;
-      float tot[NV];
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        float s = 0.f;
-        for (int w = 0; w < nw; ++w) s += red[(i * nw + w) * NV + j];
-        tot[j] = s;
-      }
-      const float a = r[CA], b = r[CB], cc = r[CC];
-      const float ul = r[CU] - x0, vl = r[CV] - y0;
-      const int nchain = RGBD ? 2 : 1;
-      for (int chn = 0; chn < nchain; ++chn) {
-        const float* G = tot + chn * 10;
-        float out[F];
-#pragma unroll
-        for (int j = 0; j < F; ++j) out[j] = 0.f;
-        out[CU] = a * G[3] + b * G[4] - (a * ul + b * vl) * G[5];
-        out[CV] = b * G[3] + cc * G[4] - (b * ul + cc * vl) * G[5];
-        out[CA] = -0.5f * G[0] + ul * G[3] - 0.5f * ul * ul * G[5];
-        out[CB] = -G[1] + vl * G[3] + ul * G[4] - ul * vl * G[5];
-        out[CC] = -0.5f * G[2] + vl * G[4] - 0.5f * vl * vl * G[5];
-        out[LOGO] = G[5];
-        if (chn == 0) {
-          out[R0] = G[6];
-          out[G0] = G[7];
-          out[B0] = G[8];
-          out[CZ] = G[9];
-        } else {
-          out[CZ] = G[6];
-        }
-        float* dst = (chn == 0 ? dd : dd_dep) + ((size_t)t * kf + k0 + i) * F;
-        float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          d4[j] = make_float4(out[4 * j], out[4 * j + 1], out[4 * j + 2],
-                              out[4 * j + 3]);
-      }
-    }
+  for (int ch = 0; ch < 3; ++ch) {
+    const float col = o[ch];
+    const float img = use_exposure ? e * col + sc[1] : col;
+    const float r = (img - gt[px * 3 + ch]) * mk;
+    const float sgn = r > 0.f ? 1.f : (r < 0.f ? -1.f : 0.f);
+    g[ch] = ge * sgn * mk;
+    part[0] += fabsf(r);
+    part[2] += sgn * mk * col;
+    part[3] += sgn * mk;
   }
+  if constexpr (RGBD) {
+    const float gz = gtd[px];
+    const float dm = gz > 0.01f ? 1.0f : 0.0f;
+    const float r_d = (o[3] - gz) * dm;
+    const float sgn = r_d > 0.f ? 1.f : (r_d < 0.f ? -1.f : 0.f);
+    g[3] = w_dep * sgn * dm;
+    part[1] = fabsf(r_d);
+  }
+  tile_sums<4>(c, part, bsum, sums);
+  reverse_blend<RGBD, false>(c, rows, ck, tex, red, kf, kend, g, 0.f, dd,
+                             nullptr);
+}
+
+// ------------------------------------------------------------- blend VJP --
+// Row cotangents of the list blend from output cotangents g_outs [T, P, 8]:
+// the forward recomputed from chunk checkpoints, then the reverse blend.
+// Columns 5-7 of g_outs pair with constant-zero features and are not read.
+__global__ void bwd_kernel(const float* __restrict__ d,
+                           const float* __restrict__ tx0,
+                           const float* __restrict__ ty0,
+                           const float* __restrict__ pmat,
+                           const float* __restrict__ g_outs,
+                           float* __restrict__ dd, int kf, int width,
+                           int height) {
+  constexpr int NV = RevSpec<true, false>::NV;
+  extern __shared__ float smem[];
+  const Tile c = load_tile(d, tx0, ty0, pmat, kf, width, height);
+  float* rows = smem;
+  float* ck = rows + KC * F;
+  float* tex = ck + n_chunks(kf) * c.P;
+  float* red = tex + KC * c.P;
+
+  float o[5];
+  const int kend = forward_checkpointed(c, rows, ck, kf, o);
+  const float* go = g_outs + ((size_t)c.t * c.P + c.p) * 8;
+  const float g[5] = {go[0], go[1], go[2], go[3], go[4]};
+  reverse_blend<true, false>(c, rows, ck, tex, red, kf, kend, g, 0.f, dd,
+                             nullptr);
 }
 
 // ------------------------------------------------ primal + 6 pose tangents --
@@ -480,12 +656,12 @@ __global__ void jvp8_kernel(const float* __restrict__ d,
     store8(touts + (((size_t)t * NTAN + j) * P + p) * 8, to[j]);
 }
 
+// Dynamic shared memory above 48 KB needs the kernel's opt-in.
 template <typename K>
-int launch_prepare(K kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         (int)smem);
-  return 0;
+cudaError_t launch_prepare(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -516,24 +692,64 @@ extern "C" int blend_fo_grad(const float* d, const float* tx0,
                              float delta, float two_delta, float delta_sq,
                              float eps, void* stream) {
   if (n_tiles == 0) return 0;
-  const int nw = p / 32;
-  const int nch = (kf + KC - 1) / KC;
-  const int nv = gtd ? 17 : 10;
-  const size_t smem =
-      (size_t)(KC * F + nch * p + KC * p + KC * nw * nv + nw * 5) *
-      sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (gtd) {
-    launch_prepare(fo_grad_kernel<true>, smem);
+    const size_t smem = reverse_smem(kf, p, RevSpec<false, true>::NV);
+    const cudaError_t rc = launch_prepare(fo_grad_kernel<true>, smem);
+    if (rc != cudaSuccess) return (int)rc;
     fo_grad_kernel<true><<<n_tiles, p, smem, s>>>(
         d, tx0, ty0, pmat, gt, mask, gtd, sc, dd, dd_dep, sums, kf, width,
         height, use_huber, delta, two_delta, delta_sq, eps);
   } else {
-    launch_prepare(fo_grad_kernel<false>, smem);
+    const size_t smem = reverse_smem(kf, p, RevSpec<false, false>::NV);
+    const cudaError_t rc = launch_prepare(fo_grad_kernel<false>, smem);
+    if (rc != cudaSuccess) return (int)rc;
     fo_grad_kernel<false><<<n_tiles, p, smem, s>>>(
         d, tx0, ty0, pmat, gt, mask, nullptr, sc, dd, nullptr, sums, kf,
         width, height, use_huber, delta, two_delta, delta_sq, eps);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int blend_map_grad(const float* d, const float* tx0,
+                              const float* ty0, const float* pmat,
+                              const float* gt, const float* mask,
+                              const float* gtd, const float* sc, float* dd,
+                              float* sums, int n_tiles, int kf, int p,
+                              int width, int height, int use_exposure,
+                              float w_rgb, float w_dep, float eps,
+                              void* stream) {
+  if (n_tiles == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (gtd) {
+    const size_t smem = reverse_smem(kf, p, RevSpec<true, false>::NV);
+    const cudaError_t rc = launch_prepare(map_grad_kernel<true>, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    map_grad_kernel<true><<<n_tiles, p, smem, s>>>(
+        d, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, width, height,
+        use_exposure, w_rgb, w_dep, eps);
+  } else {
+    const size_t smem = reverse_smem(kf, p, RevSpec<false, false>::NV);
+    const cudaError_t rc = launch_prepare(map_grad_kernel<false>, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    map_grad_kernel<false><<<n_tiles, p, smem, s>>>(
+        d, tx0, ty0, pmat, gt, mask, nullptr, sc, dd, sums, kf, width,
+        height, use_exposure, w_rgb, w_dep, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int blend_bwd(const float* d, const float* tx0, const float* ty0,
+                         const float* pmat, const float* g_outs, float* dd,
+                         int n_tiles, int kf, int p, int width, int height,
+                         void* stream) {
+  if (n_tiles == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = reverse_smem(kf, p, RevSpec<true, false>::NV);
+  const cudaError_t rc = launch_prepare(bwd_kernel, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  bwd_kernel<<<n_tiles, p, smem, s>>>(d, tx0, ty0, pmat, g_outs, dd, kf,
+                                      width, height);
   return (int)cudaGetLastError();
 }
 

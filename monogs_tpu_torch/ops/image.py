@@ -1,8 +1,8 @@
-"""Image-space ops needed by ``make_frame_data``: Scharr gradients, the
-validity mask and the edge-aware tracking mask.
+"""Image-space ops: Scharr gradients, the validity mask, the edge-aware
+tracking mask (``make_frame_data``), PSNR and SSIM (colour refinement).
 
-Counterpart of ``monogs_tpu/ops/image.py`` (``psnr``/``ssim`` arrive with
-the evaluation slice). Images are channel-first [C, H, W] float32.
+Counterpart of ``monogs_tpu/ops/image.py``. Images are channel-first
+[C, H, W] float32.
 """
 
 from __future__ import annotations
@@ -74,3 +74,36 @@ def compute_grad_mask(gt_image, edge_threshold, rgb_boundary_threshold,
         grad_mask = (intensity > med * edge_threshold)[None].float()
     mapping = (torch.sum(gt_image, dim=0) > rgb_boundary_threshold)[None].float()
     return mapping * grad_mask, mapping
+
+
+def psnr(img1, img2):
+    """20 log10(1 / sqrt(mse)) over all pixels."""
+    mse = torch.mean((img1 - img2) ** 2)
+    return 20.0 * torch.log10(1.0 / torch.sqrt(mse))
+
+
+def _gaussian_window(size: int, sigma: float, device):
+    xs = torch.arange(size, dtype=torch.float32, device=device) - size // 2
+    g = torch.exp(-(xs ** 2) / (2 * sigma ** 2))
+    g = g / g.sum()
+    return torch.outer(g, g)
+
+
+def ssim(img1, img2, window_size: int = 11):
+    """Mean SSIM with an 11x11 Gaussian window (sigma 1.5) and 'same' zero
+    padding, per channel. imgs: [C, H, W]."""
+    win = _gaussian_window(window_size, 1.5, img1.device)[None, None]
+    pad = window_size // 2
+
+    def f(img):
+        return F.conv2d(img[:, None], win.to(img.dtype), padding=pad)[:, 0]
+
+    mu1, mu2 = f(img1), f(img2)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = f(img1 * img1) - mu1_sq
+    sigma2_sq = f(img2 * img2) - mu2_sq
+    sigma12 = f(img1 * img2) - mu1_mu2
+    c1, c2 = 0.01 ** 2, 0.03 ** 2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / (
+        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+    return torch.mean(ssim_map)

@@ -1,8 +1,9 @@
-"""Tracking losses: affine exposure, the per-pixel residual, signed
-sqrt-Huber and the median depth.
+"""Losses: affine exposure, the tracking residual, signed sqrt-Huber, the
+mapping L1 losses, the isotropic regulariser and the median depth.
 
-Counterpart of ``monogs_tpu/ops/losses.py`` (the mapping losses arrive with
-the mapping slice).
+Counterpart of ``monogs_tpu/ops/losses.py``. ``abs_`` is |x| with the
+derivative jnp.abs has at 0 (1, where torch.abs has 0), so that gradients
+through an L1 term match the JAX package's where a residual is exactly 0.
 """
 
 from __future__ import annotations
@@ -59,11 +60,44 @@ def huber_signed(x, delta: float):
     return _HuberSigned.apply(x, float(delta))
 
 
+def abs_(x):
+    """|x|, differentiated as jnp.abs (slope 1 at 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
 def tracking_residual_rgb(image, gt_image, opacity, mapping_mask,
                           exposure_a, exposure_b):
     """Signed per-pixel tracking residual [3, H, W]."""
     image_ab = apply_exposure(image, exposure_a, exposure_b)
     return opacity * (image_ab * mapping_mask - gt_image * mapping_mask)
+
+
+def mapping_loss_rgb(image, gt_image, mapping_mask, exposure_a, exposure_b,
+                     initialization: bool = False):
+    """Mean masked L1, with exposure unless initialising."""
+    image_ab = (image if initialization
+                else apply_exposure(image, exposure_a, exposure_b))
+    return torch.mean(abs_(image_ab * mapping_mask - gt_image * mapping_mask))
+
+
+def mapping_loss_rgbd(image, depth, gt_image, gt_depth, mapping_mask,
+                      exposure_a, exposure_b, alpha: float = 0.95,
+                      initialization: bool = False):
+    """alpha * masked RGB L1 + (1 - alpha) * L1 of depth where gt > 0.01."""
+    image_ab = (image if initialization
+                else apply_exposure(image, exposure_a, exposure_b))
+    l1_rgb = abs_(image_ab * mapping_mask - gt_image * mapping_mask)
+    dm = (gt_depth > 0.01).to(depth.dtype)
+    l1_depth = abs_(depth * dm - gt_depth * dm)
+    return alpha * torch.mean(l1_rgb) + (1 - alpha) * torch.mean(l1_depth)
+
+
+def isotropic_reg(scaling, active_mask):
+    """Mean |s - mean_row(s)| over the active Gaussians' [N, 3] scales."""
+    dev = abs_(scaling - torch.mean(scaling, dim=1, keepdim=True))
+    m = active_mask[:, None].to(scaling.dtype)
+    denom = torch.clamp(torch.sum(m) * scaling.shape[1], min=1.0)
+    return torch.sum(dev * m) / denom
 
 
 def get_median_depth(depth, opacity=None, mask=None):

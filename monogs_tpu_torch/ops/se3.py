@@ -84,8 +84,10 @@ def so3_left_jacobian(theta):
 
 def _rigid(R, t):
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(top.shape[:-2] + (1, 4))
+    # the (0, 0, 0, 1) row from t, so that no host-to-device copy (and no
+    # stream synchronisation) happens per call
+    bottom = torch.cat([torch.zeros_like(t), torch.ones_like(t[..., :1])],
+                       dim=-1)[..., None, :]
     return torch.cat([top, bottom], dim=-2)
 
 

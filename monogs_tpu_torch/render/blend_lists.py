@@ -1,4 +1,4 @@
-"""The per-tile list blend: four CUDA kernels, each beside its plain version.
+"""The per-tile list blend: six CUDA kernels, each beside its plain version.
 
 Counterpart of ``monogs_tpu/render/pallas_lists.py``. Binning produced
 ``d = packed[lists.idx]``, [T, Kf, 16] depth-ordered rows per tile (invalid
@@ -12,8 +12,11 @@ entry point below has
   the on-card check compares the kernel with.
 
 A CUDA tensor never falls back to the plain version: the kernel launches or
-the call raises. None of these functions is differentiable; the blend's VJP
-kernel (``_bwd_kernel``) arrives with the mapping slice.
+the call raises. ``blend_lists_fn`` is the differentiable list blend: a
+``torch.autograd.Function`` whose forward is ``blend_lists`` and whose
+backward is ``blend_lists_vjp``; it saves only the rows (not the [T, K, P]
+activations), which the VJP kernel re-blends from chunk checkpoints. No
+other function here is differentiable.
 
 Kernels (TPU kernel replaced -> bound on the H100 -> design):
 
@@ -56,7 +59,7 @@ _NTAN = 6
 # launches of each kernel since the last reset (the RGB-D variant of the
 # fused first-order kernel is counted apart from the mono one)
 LAUNCHES = {"fwd": 0, "fwd_counts": 0, "fo_grad": 0, "fo_grad_rgbd": 0,
-            "jvp8": 0}
+            "jvp8": 0, "bwd": 0, "map_grad": 0, "map_grad_rgbd": 0}
 
 
 def reset_launches():
@@ -221,6 +224,61 @@ def blend_lists_jvp8_plain(d, d_tan, tx0, ty0, pmat, width: int,
     return f["outs"], touts
 
 
+def blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, width: int,
+                          height: int):
+    return _dd_from_gouts_plain(
+        _forward_plain(d, tx0, ty0, pmat, width, height), pmat, g_outs)
+
+
+def map_grad_weights(width: int, height: int, alpha: float, rgbd: bool,
+                     px_frac: float = 1.0):
+    """(w_rgb, w_dep): the mapping loss's weights of the summed |r| terms,
+    mean normalisers m_rgb = 3 W H px_frac and m_dep = W H px_frac with the
+    RGB-D mix (renderer.map_grad_from_rows)."""
+    m_rgb = 3.0 * width * height * px_frac
+    m_dep = float(width * height) * px_frac
+    if rgbd:
+        return alpha / m_rgb, (1.0 - alpha) / m_dep
+    return 1.0 / m_rgb, 0.0
+
+
+def map_grad_lists_plain(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
+                         height: int, use_exposure: bool, alpha: float,
+                         eps: float, gtd_t=None, px_frac: float = 1.0):
+    f = _forward_plain(d, tx0, ty0, pmat, width, height)
+    outs = f["outs"]
+    col = outs[..., 0:3]
+    if use_exposure:
+        e = torch.abs(ea) + eps
+        image_ab = e * col + eb
+    else:
+        e = 1.0
+        image_ab = col
+    r = (image_ab - gt_t) * mask_t
+    sgn = torch.sign(r)
+    w_rgb, w_dep = map_grad_weights(width, height, alpha, gtd_t is not None,
+                                    px_frac)
+    g_col = (w_rgb * e) * sgn * mask_t
+
+    def tile_sum(x):
+        return x.sum(dim=(1, 2))
+
+    z1 = torch.zeros_like(mask_t)
+    zs = torch.zeros_like(tile_sum(mask_t))
+    if gtd_t is not None:
+        dm = (gtd_t > 0.01).to(d.dtype)
+        r_d = (outs[..., 3:4] - gtd_t) * dm
+        g_dep = w_dep * torch.sign(r_d) * dm
+        l_dep = tile_sum(torch.abs(r_d))
+    else:
+        g_dep, l_dep = z1, zs
+    g_outs = torch.cat([g_col, g_dep, z1, z1, z1, z1], dim=-1)
+    sums = torch.stack([tile_sum(torch.abs(r)), l_dep,
+                        tile_sum(sgn * mask_t * col), tile_sum(sgn * mask_t),
+                        zs, zs, zs, zs], dim=1)
+    return _dd_from_gouts_plain(f, pmat, g_outs), sums
+
+
 # ------------------------------------------------------------------ kernels
 
 def _on_cuda(d) -> bool:
@@ -355,3 +413,80 @@ def blend_lists_jvp8(d, d_tan, tx0, ty0, pmat, width: int, height: int):
     _raise_on(rc, "blend_jvp8")
     LAUNCHES["jvp8"] += 1
     return outs, touts
+
+
+def blend_lists_vjp(d, tx0, ty0, pmat, g_outs, width: int, height: int):
+    """Row cotangents [T, Kf, F] of ``blend_lists`` from output cotangents
+    g_outs [T, P, 8] (columns 5-7 are ignored: their features are 0)."""
+    if not _on_cuda(d):
+        return blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, width, height)
+    n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
+    _check("g_outs", g_outs, (n_tiles, p, 8))
+    dd = torch.empty_like(d)
+    rc = _lib().blend_bwd(
+        d.data_ptr(), tx0.data_ptr(), ty0.data_ptr(), pmat.data_ptr(),
+        g_outs.data_ptr(), dd.data_ptr(), n_tiles, kf, p, width, height,
+        _stream())
+    _raise_on(rc, "blend_bwd")
+    LAUNCHES["bwd"] += 1
+    return dd
+
+
+class _BlendLists(torch.autograd.Function):
+    """The list blend, differentiable in ``d``: forward ``blend_lists``,
+    backward ``blend_lists_vjp`` (JAX ``blend_lists_pallas``'s custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, d, tx0, ty0, pmat, width, height):
+        ctx.save_for_backward(d, tx0, ty0, pmat)
+        ctx.size = (width, height)
+        return blend_lists(d, tx0, ty0, pmat, width, height)
+
+    @staticmethod
+    def backward(ctx, g_outs):
+        d, tx0, ty0, pmat = ctx.saved_tensors
+        dd = blend_lists_vjp(d, tx0, ty0, pmat, g_outs.contiguous(),
+                             *ctx.size)
+        return dd, None, None, None, None, None
+
+
+def blend_lists_fn(d, tx0, ty0, pmat, width: int, height: int):
+    """``blend_lists`` with a gradient to ``d`` through the VJP kernel."""
+    return _BlendLists.apply(d, tx0, ty0, pmat, width, height)
+
+
+def map_grad_lists(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
+                   height: int, use_exposure: bool, alpha: float, eps: float,
+                   gtd_t=None, px_frac: float = 1.0):
+    """Fused mapping loss and gradient over frozen lists.
+
+    d: [S, Kf, F]; gt_t/mask_t: [S, P, 3]/[S, P, 1] tiled ground truth
+    (and gtd_t [S, P, 1] for RGB-D); ea/eb: 0-d exposure tensors (unused
+    without ``use_exposure``); ``alpha`` mixes RGB and depth; ``px_frac``
+    scales the mean normalisers of a tile-subset call. Returns (dd
+    [S, Kf, F] = d(loss)/d(d) with the normalisers applied, sums [S, 8] =
+    per-tile (sum |r_rgb|, sum |r_d|, sum sgn mask col, sum sgn mask, 0,
+    0, 0, 0))."""
+    if not _on_cuda(d):
+        return map_grad_lists_plain(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb,
+                                    width, height, use_exposure, alpha, eps,
+                                    gtd_t, px_frac)
+    n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
+    _check("gt_t", gt_t, (n_tiles, p, 3))
+    _check("mask_t", mask_t, (n_tiles, p, 1))
+    if gtd_t is not None:
+        _check("gtd_t", gtd_t, (n_tiles, p, 1))
+    w_rgb, w_dep = map_grad_weights(width, height, alpha, gtd_t is not None,
+                                    px_frac)
+    sc = torch.stack([ea, eb]).to(torch.float32)
+    dd = torch.empty_like(d)
+    sums = torch.empty((n_tiles, 8), dtype=torch.float32, device=d.device)
+    rc = _lib().blend_map_grad(
+        d.data_ptr(), tx0.data_ptr(), ty0.data_ptr(), pmat.data_ptr(),
+        gt_t.data_ptr(), mask_t.data_ptr(),
+        gtd_t.data_ptr() if gtd_t is not None else None, sc.data_ptr(),
+        dd.data_ptr(), sums.data_ptr(), n_tiles, kf, p, width, height,
+        int(use_exposure), w_rgb, w_dep, eps, _stream())
+    _raise_on(rc, "blend_map_grad")
+    LAUNCHES["map_grad" if gtd_t is None else "map_grad_rgbd"] += 1
+    return dd, sums

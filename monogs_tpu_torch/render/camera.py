@@ -1,13 +1,16 @@
-"""Camera intrinsics (counterpart of ``monogs_tpu/render/camera.py``).
+"""Camera intrinsics and depth backprojection (counterpart of
+``monogs_tpu/render/camera.py``).
 
-A hashable NamedTuple of Python scalars with the same fields, so a JAX
-``Intrinsics`` maps one to one: ``Intrinsics(*jax_intr)``.
+``Intrinsics`` is a hashable NamedTuple of Python scalars with the same
+fields, so a JAX ``Intrinsics`` maps one to one: ``Intrinsics(*jax_intr)``.
 """
 
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
+
+import torch
 
 
 class Intrinsics(NamedTuple):
@@ -33,3 +36,16 @@ class Intrinsics(NamedTuple):
     @property
     def tan_fovy(self) -> float:
         return self.height / (2.0 * self.fy)
+
+
+def backproject_pixels(depth, intr: Intrinsics):
+    """[H, W] depth -> [H, W, 3] camera-space points, pixel (ix, iy) at
+    ((ix - cx) / fx * z, (iy - cy) / fy * z, z) (the Open3D convention the
+    reference's keyframe insertion used)."""
+    h, w = depth.shape
+    ys = torch.arange(h, dtype=torch.float32, device=depth.device)
+    xs = torch.arange(w, dtype=torch.float32, device=depth.device)
+    yg, xg = torch.meshgrid(ys, xs, indexing="ij")
+    x = (xg - intr.cx) / intr.fx * depth
+    y = (yg - intr.cy) / intr.fy * depth
+    return torch.stack([x, y, depth], dim=-1)

@@ -6,6 +6,10 @@ radius from the dominant eigenvalue, SH -> RGB clamped at zero. Written as
 scalar column ops over [N] with no in-place writes and no host reads, so
 ``torch.func.jvp``/``vmap`` (the second-order tracker's pose tangents) and
 ``torch.autograd.grad`` (the first-order pose gradient) run through it.
+
+``means2d_offset`` is the mapping's zero-valued [N, 2] hook on the screen
+means (scaled by 2/width and 2/height, the CUDA rasterizer's NDC units):
+its gradient is the screen-space gradient that feeds densification.
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def covariance3d(log_scale, quat, scale_modifier=1.0):
 
 def preprocess(xyz, log_scale, quat, opa_logit, sh_coeffs, active, T_cw,
                intr: Intrinsics, sh_degree: int = 0, near: float = 0.2,
-               scale_modifier: float = 1.0) -> Projected:
+               scale_modifier: float = 1.0, means2d_offset=None) -> Projected:
     R = T_cw[:3, :3]
     t = T_cw[:3, 3]
     px = xyz[:, 0] * R[0, 0] + xyz[:, 1] * R[0, 1] + xyz[:, 2] * R[0, 2] + t[0]
@@ -62,6 +66,9 @@ def preprocess(xyz, log_scale, quat, opa_logit, sh_coeffs, active, T_cw,
 
     u = intr.fx * px * inv_z + intr.cx - 0.5
     v = intr.fy * py * inv_z + intr.cy - 0.5
+    if means2d_offset is not None:
+        u = u + means2d_offset[:, 0] * (2.0 / intr.width)
+        v = v + means2d_offset[:, 1] * (2.0 / intr.height)
     mean2d = torch.stack([u, v], dim=-1)
 
     sxx, sxy, sxz, syy, syz, szz = covariance3d(log_scale, quat,

@@ -1,12 +1,13 @@
 """The tiled Gaussian-splat renderer over frozen per-tile lists.
 
-Counterpart of ``monogs_tpu/render/renderer.py`` for the tracking slice:
-the binning half (``_make_lists``, ``build_tile_lists``,
+Counterpart of ``monogs_tpu/render/renderer.py`` for the tracking and
+mapping slices: the binning half (``_make_lists``, ``build_tile_lists``,
 ``refine_fine_lists``, ``tile_images``) and the list-blend render surface
-(``render`` with the n_touched scatter-add, ``tile_rows``,
-``render_fo_grad_tiles``, ``render_pose_jvp_tiles``). Every blend goes
-through the kernels of ``blend_lists``; binning is plain PyTorch sorts, as
-the JAX package left it to XLA.
+(``render``, differentiable without n_touched; ``tile_rows``,
+``render_fo_grad_tiles``, ``render_pose_jvp_tiles``, ``render_map_grad``,
+``map_grad_from_rows``). Every blend goes through the kernels of
+``blend_lists``; binning is plain PyTorch sorts, as the JAX package left it
+to XLA.
 
 Binning is not differentiable and runs under ``torch.no_grad``. Indices are
 int64 (PyTorch's index type); every sort key stays in the int32 value range
@@ -27,7 +28,8 @@ import torch.nn.functional as F
 from ..ops import se3
 from .blend_lists import (  # noqa: F401  (the packed row layout)
     _CA, _CB, _CC, _F, _LOGO, _OPA, _R0, _G0, _B0, _RAD, _U, _V, _Z,
-    blend_lists, blend_lists_counts, blend_lists_jvp8, fo_grad_lists,
+    blend_lists_counts, blend_lists_fn, blend_lists_jvp8, fo_grad_lists,
+    map_grad_lists, map_grad_weights,
 )
 from .camera import Intrinsics
 from .primitives import preprocess
@@ -307,15 +309,17 @@ def _assemble(x, intr: Intrinsics, cfg: RenderConfig):
 
 def frame_rows(gauss: GaussianArrays, T_cw, intr: Intrinsics,
                cfg: RenderConfig, tau=None, scale_modifier: float = 1.0,
-               lists: Optional[TileLists] = None):
+               lists: Optional[TileLists] = None, means2d_offset=None):
     """What the full-frame blend consumes: (d [Tf, Kf, F] packed rows with
     validity folded in, vld_f [Tf, Kf], lists, prep). Without ``lists`` the
-    scene is binned at this pose first."""
+    scene is binned at this pose first. Differentiable in the map, ``tau``
+    and ``means2d_offset`` (the gather's transpose is autograd's)."""
     T_eff = se3.retract(T_cw, tau) if tau is not None else T_cw
     prep = preprocess(gauss.xyz, gauss.log_scale, gauss.quat,
                       gauss.opa_logit, gauss.sh, gauss.active, T_eff, intr,
                       sh_degree=cfg.sh_degree, near=cfg.near,
-                      scale_modifier=scale_modifier)
+                      scale_modifier=scale_modifier,
+                      means2d_offset=means2d_offset)
     packed = _pack(prep)
     if lists is None:
         lists, _ = _make_lists(packed[:, _U], packed[:, _V], packed[:, _RAD],
@@ -328,28 +332,32 @@ def frame_rows(gauss: GaussianArrays, T_cw, intr: Intrinsics,
 
 def render(gauss: GaussianArrays, T_cw, intr: Intrinsics, cfg: RenderConfig,
            tau=None, bg=None, scale_modifier: float = 1.0,
-           lists: Optional[TileLists] = None) -> RenderResult:
-    """Tiled render through the list blend kernel (counts kernel with
-    ``cfg.with_n_touched``). Without ``lists`` the scene is binned at this
-    pose first. Not differentiable (the blend VJP kernel is not ported)."""
+           lists: Optional[TileLists] = None,
+           means2d_offset=None) -> RenderResult:
+    """Tiled render through the list blend kernel. Without ``lists`` the
+    scene is binned at this pose first. Without ``cfg.with_n_touched`` it is
+    differentiable in the map, ``tau`` and ``means2d_offset`` (the blend's
+    backward is the VJP kernel); with it, the counts kernel runs and the
+    result is not differentiable, as in the JAX package."""
     _check_backend(cfg)
     n = gauss.xyz.shape[0]
     dev = gauss.xyz.device
     if bg is None:
         bg = torch.zeros((3,), dtype=torch.float32, device=dev)
     d, vld_f, lists, prep = frame_rows(gauss, T_cw, intr, cfg, tau,
-                                       scale_modifier, lists)
+                                       scale_modifier, lists,
+                                       means2d_offset)
     tx0, ty0 = _tile_origins(intr, cfg, dev)
     pmat = _tile_pmat(cfg, dev)
     W, H = intr.width, intr.height
     if cfg.with_n_touched:
-        outs, cnts = blend_lists_counts(d, tx0, ty0, pmat, W, H)
+        outs, cnts = blend_lists_counts(d.detach(), tx0, ty0, pmat, W, H)
         orig = torch.where(vld_f, lists.idx, n).reshape(-1)
         n_touched = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
         n_touched = n_touched.index_add_(
             0, orig, cnts.to(torch.int32).reshape(-1))[:n]
     else:
-        outs = blend_lists(d, tx0, ty0, pmat, W, H)
+        outs = blend_lists_fn(d, tx0, ty0, pmat, W, H)
         n_touched = torch.zeros((n,), dtype=torch.int32, device=dev)
     accs = outs[..., 4:5]
     colors = outs[..., :3] + (1.0 - accs) * bg
@@ -455,6 +463,88 @@ def render_fo_grad_tiles(gauss: GaussianArrays, T_cw, intr: Intrinsics,
     g_ea = c_rgb * torch.sum(sums[:, 2]) * torch.sign(ea)
     g_eb = c_rgb * torch.sum(sums[:, 3])
     return loss, l1, torch.cat([g_tau, g_ea[None], g_eb[None]])
+
+
+def render_map_grad(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+                    cfg: RenderConfig, lists: TileLists, gt_t, mask_t, tau,
+                    off, ea, eb, initialization: bool, alpha: float,
+                    gtd_t=None, sortperm=None, txy=None,
+                    px_frac: float = 1.0, gather_first: bool = False):
+    """Fused mapping loss and its full gradient for one view over frozen
+    lists.
+
+    One map_grad kernel launch computes the blend, the masked L1 chain
+    (``ops/losses.mapping_loss_rgb[d]``, exposure unless
+    ``initialization``) and the reverse blend; the row cotangents are pulled
+    back through the full-N preprocess and the ``packed[lists.idx]`` gather
+    with ``torch.autograd.grad``, whose graph is freed when it returns.
+    ``off`` [N, 2] is the zero screen-space hook whose gradient feeds
+    densification. ``txy``/``px_frac``: a tile-subset call (``lists``,
+    ``gt_t``, ``mask_t``, ``gtd_t`` hold S of the Tf tiles, ``txy`` their
+    origins, ``px_frac`` = S/Tf unbiases the normalisers).
+
+    Returns (loss, g_leaves, g_tau, g_off, g_ea, g_eb, radii) with g_leaves
+    the gradients of (xyz, sh, log_scale, quat, opa_logit)."""
+    _check_backend(cfg)
+    if sortperm is not None or gather_first:
+        raise NotImplementedError(
+            "render_map_grad sortperm / gather_first: default-off A/B knobs "
+            "of the JAX package that arrive with the mapping A/B-knobs slice")
+    leaves = [x.detach().requires_grad_(True) for x in
+              (gauss.xyz, gauss.sh, gauss.log_scale, gauss.quat,
+               gauss.opa_logit)]
+    tau = tau.detach().requires_grad_(True)
+    off = off.detach().requires_grad_(True)
+    with torch.enable_grad():
+        prep = preprocess(leaves[0], leaves[2], leaves[3], leaves[4],
+                          leaves[1], gauss.active, se3.retract(T_cw, tau),
+                          intr, sh_degree=cfg.sh_degree, near=cfg.near,
+                          means2d_offset=off)
+        packed = _pack(prep)
+        d = _masked_rows(packed[lists.idx],
+                         lists.vld & prep.valid[lists.idx])
+    loss, dd, g_ea, g_eb = map_grad_from_rows(
+        d.detach(), intr, cfg, gt_t, mask_t, ea, eb, initialization, alpha,
+        gtd_t=gtd_t, txy=txy, px_frac=px_frac)
+    grads = torch.autograd.grad(d, leaves + [tau, off], grad_outputs=dd)
+    return (loss, tuple(grads[:5]), grads[5], grads[6], g_ea, g_eb,
+            prep.radius.detach())
+
+
+def map_grad_from_rows(d, intr: Intrinsics, cfg: RenderConfig, gt_t, mask_t,
+                       ea, eb, initialization: bool, alpha: float,
+                       gtd_t=None, madd=None, txy=None,
+                       px_frac: float = 1.0):
+    """The kernel and loss half of ``render_map_grad``: one map_grad kernel
+    launch over pre-gathered rows d [S, Kf, F] -> (loss, dL/dd, g_ea,
+    g_eb). ``txy`` overrides the tile origins of a tile-subset call."""
+    from ..ops.losses import EXPOSURE_EPS
+
+    if madd is not None:
+        raise NotImplementedError(
+            "map_grad_from_rows madd (the in-kernel validity mask of the "
+            "batched-IO and gauss-parallel paths) arrives with the parallel "
+            "slice")
+    dev = d.device
+    tx0, ty0 = txy if txy is not None else _tile_origins(intr, cfg, dev)
+    use_exposure = not initialization
+    rgbd = gtd_t is not None
+    dd, sums = map_grad_lists(
+        d, tx0, ty0, _tile_pmat(cfg, dev), gt_t, mask_t, ea, eb, intr.width,
+        intr.height, use_exposure, alpha if rgbd else 1.0, EXPOSURE_EPS,
+        gtd_t=gtd_t, px_frac=px_frac)
+    w_rgb, w_dep = map_grad_weights(intr.width, intr.height, alpha, rgbd,
+                                    px_frac)
+    loss = w_rgb * torch.sum(sums[:, 0])
+    if rgbd:
+        loss = loss + w_dep * torch.sum(sums[:, 1])
+    if use_exposure:
+        g_ea = w_rgb * torch.sum(sums[:, 2]) * torch.sign(ea)
+        g_eb = w_rgb * torch.sum(sums[:, 3])
+    else:
+        g_ea = torch.zeros_like(ea)
+        g_eb = torch.zeros_like(eb)
+    return loss, dd, g_ea, g_eb
 
 
 def tile_images(img, intr: Intrinsics, cfg: RenderConfig):

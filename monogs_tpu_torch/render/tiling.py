@@ -1,6 +1,7 @@
 """Tile binning for the tiled rasterizer.
 
-Counterpart of ``monogs_tpu/render/tiling.py``: ``compact_sort`` and the
+Counterpart of ``monogs_tpu/render/tiling.py``: ``compact_sort``,
+``compact_indices`` and the
 duplicated-instance macro binning of the CUDA rasterizer (one global sort
 of ``macro_id * R + margin_bit + depth_rank`` keys, R = pow2 >= N, per-macro
 lists as contiguous ranges found with ``searchsorted``) with the exact
@@ -31,6 +32,18 @@ def compact_sort(mask, capacity: int):
     skeys = torch.sort(keys).values[:capacity]
     valid = skeys < m
     return torch.where(valid, skeys, torch.zeros_like(skeys)), valid
+
+
+def compact_indices(mask, capacity: int):
+    """(idx [capacity], valid [capacity], total): indices of the first
+    ``capacity`` set bits of ``mask`` in order (cumsum and a binary search,
+    no host sync); entries beyond the population count point at 0."""
+    cs = torch.cumsum(mask.long(), 0)
+    total = cs[-1]
+    targets = torch.arange(1, capacity + 1, device=mask.device)
+    idx = torch.searchsorted(cs, targets, side="left")
+    valid = targets <= torch.clamp(total, max=capacity)
+    return torch.where(valid, idx, torch.zeros_like(idx)), valid, total
 
 
 def grid_span(u, v, radius, n_x: int, n_y: int, cell: int):

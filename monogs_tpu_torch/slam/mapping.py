@@ -1,0 +1,399 @@
+"""Mapping: keyframe-window bundle adjustment and colour refinement.
+
+Counterpart of ``monogs_tpu/slam/mapping.py`` for the branch the shipped
+configuration takes (``bench.py::bench_mapping``): frozen per-view margin
+tile lists (``bin_margin > 0``), one fused map_grad kernel per view per
+iteration (``fused_grad``) over all tiles or a fresh random tile subset
+(``tile_frac < 1``), mono and RGB-D, ``initialization``, the window
+pose/exposure Adam with retraction, densify/prune and the opacity resets on
+their schedule, list rebuilds every ``rebin_every`` iterations and after a
+densify, and the final visibility pass from the lists
+(``vis_from_lists``).
+
+The JAX package runs a call as one program (``lax.fori_loop``); here it is
+a Python loop over device tensors. The densify, reset and rebuild schedule
+depends only on the iteration counter, which stays a Python int, and no
+tensor is copied from the host inside the loop, so a mapping iteration
+never synchronises the host with the card (``chip_smoke.py`` counts the
+synchronisations under ``torch.cuda.set_sync_debug_mode``). Views run one
+after another; each view's autograd graph over the full-N preprocess is
+freed when its pull-back returns, as ``lax.map`` bounds the JAX program's
+memory.
+
+Random draws come from a ``torch.Generator``: per iteration, each view's
+tile subset, then the split noise of a densify; per colour-refinement
+iteration, the view. ``MapDraws`` and ``views`` replace them with given
+values, so a test can replay the JAX package's ``jax.random`` keys.
+
+The other branches raise ``NotImplementedError`` and name the slice that
+brings them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from ..models import gaussian_map as gm
+from ..ops import losses, se3
+from ..ops.image import ssim as ssim_fn
+from ..render.camera import Intrinsics
+from ..render.renderer import (
+    GaussianArrays, RenderConfig, TileLists, _tile_origins, build_tile_lists,
+    render, render_map_grad, tile_images,
+)
+
+
+class MapConfig(NamedTuple):
+    """Static mapping hyperparameters; same fields and defaults as the JAX
+    package's MapConfig (see there for each knob's rationale)."""
+
+    monocular: bool = True
+    alpha: float = 0.95
+    window_size: int = 8
+    pose_window: int = 3
+    pool_size: int = 2
+    lr_trans: float = 0.0005
+    lr_rot: float = 0.0015
+    lr_exposure_a: float = 0.01
+    lr_exposure_b: float = 0.01
+    densify_grad_threshold: float = 0.0002
+    gaussian_th: float = 0.7
+    gaussian_extent: float = 6.0
+    gaussian_update_every: int = 150
+    gaussian_update_offset: int = 50
+    gaussian_reset: int = 2001
+    size_threshold: int = 20
+    init_gaussian_update: int = 100
+    init_gaussian_reset: int = 500
+    init_gaussian_th: float = 0.005
+    init_gaussian_extent: float = 180.0
+    densify_from_iter: int = 500
+    isotropic_weight: float = 10.0
+    lambda_dssim: float = 0.2
+    clone_cap: int = 8192
+    split_cap: int = 4096
+    bin_margin: float = 4.0
+    rebin_every: int = 25
+    batch_render: bool = False
+    fused_grad: bool = True
+    scatter_segsum: bool = False
+    io_batch: bool = False
+    tile_frac: float = 1.0
+    gather_first: bool = False
+    vis_from_lists: bool = True
+
+
+class CamBatch(NamedTuple):
+    """Stacked per-view tensors of the window (and staged pool)."""
+
+    gt_image: torch.Tensor      # [B, 3, H, W]
+    gt_depth: torch.Tensor      # [B, 1, H, W]
+    mapping_mask: torch.Tensor  # [B, 1, H, W]
+    T: torch.Tensor             # [B, 4, 4]
+    ea: torch.Tensor            # [B]
+    eb: torch.Tensor            # [B]
+    valid: torch.Tensor         # [B] bool, slot in use
+    opt_pose: torch.Tensor      # [B] bool, optimise the pose
+    opt_exposure: torch.Tensor  # [B] bool, optimise the exposure
+
+
+def empty_cam_batch(b: int, h: int, w: int, device="cuda") -> CamBatch:
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return CamBatch(
+        gt_image=z(b, 3, h, w), gt_depth=z(b, 1, h, w),
+        mapping_mask=z(b, 1, h, w),
+        T=torch.eye(4, device=dev).expand(b, 4, 4).clone(),
+        ea=torch.ones((b,), device=dev), eb=z(b),
+        valid=z(b, dtype=torch.bool), opt_pose=z(b, dtype=torch.bool),
+        opt_exposure=z(b, dtype=torch.bool))
+
+
+def new_kf_adam(b: int, device="cuda"):
+    """Fresh window pose/exposure Adam state (m [B, 8], v [B, 8], step)."""
+    from .. import resolve_device
+
+    dev = resolve_device(device)
+    return (torch.zeros((b, 8), device=dev), torch.zeros((b, 8), device=dev),
+            0)
+
+
+class MapDraws(NamedTuple):
+    """Injected random draws, indexed by the call's iteration (0-based); a
+    missing or None entry is drawn from the generator."""
+
+    tsel: Sequence = ()         # [B, S] per-view tile subsets (tile_frac < 1)
+    split_noise: Sequence = ()  # [2, split_cap, 3] normals of a densify
+
+
+class MapResult(NamedTuple):
+    m: gm.GaussianMap
+    cams: CamBatch            # poses and exposures after the window Adam
+    it_count: int
+    visibility: torch.Tensor  # [B, N] bool: n_touched > 0 in a valid view
+    kf_adam: tuple            # (m [B, 8], v [B, 8], step) for the next call
+
+
+_AB_SLICE = "the mapping A/B-knobs slice"
+
+
+def _check_supported(cfg: RenderConfig, mcfg: MapConfig, axis_name):
+    if cfg.backend != "pallas_lists":
+        raise NotImplementedError(
+            f"backend={cfg.backend!r}: mapping is ported for the list blend "
+            "only; the other backends arrive with the alternative-backends "
+            "slice")
+    if axis_name is not None:
+        raise NotImplementedError(
+            "axis_name (the view-sharded mapping program) arrives with the "
+            "parallel slice")
+    for knob, off in (("bin_margin > 0", mcfg.bin_margin > 0),
+                      ("fused_grad", mcfg.fused_grad),
+                      ("batch_render", not mcfg.batch_render),
+                      ("io_batch", not mcfg.io_batch),
+                      ("scatter_segsum", not mcfg.scatter_segsum),
+                      ("gather_first", not mcfg.gather_first)):
+        if not off:
+            raise NotImplementedError(
+                f"MapConfig {knob}: only the shipped fused branch "
+                f"(bin_margin > 0, fused_grad, no batch_render / io_batch / "
+                f"scatter_segsum / gather_first) is ported; the rest arrives "
+                f"with {_AB_SLICE}")
+    if not mcfg.vis_from_lists:
+        raise NotImplementedError(
+            f"MapConfig vis_from_lists=False arrives with {_AB_SLICE}")
+
+
+def _draw(seq: Sequence, i: int):
+    return seq[i] if i < len(seq) else None
+
+
+def _build_lists(m: gm.GaussianMap, Ts, intr, cfg, margin):
+    gauss = m.render_view()
+    return [build_tile_lists(gauss, T, intr, cfg, margin=margin) for T in Ts]
+
+
+def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
+              generator: Optional[torch.Generator], intr: Intrinsics,
+              cfg: RenderConfig, mcfg: MapConfig, hyper: gm.MapHyper,
+              kf_adam=None, initialization: bool = False, axis_name=None,
+              draws: Optional[MapDraws] = None) -> MapResult:
+    """Run ``n_iters`` mapping iterations over the window ``cams``.
+
+    Per iteration: every view's fused loss and gradient (map parameters,
+    pose tangent, screen-space hook, exposure), the isotropic regulariser,
+    the densification statistics, one map Adam step, densify / prune and
+    the opacity reset on their schedule, the window pose/exposure Adam with
+    retraction (not when ``initialization``), and a list rebuild when due.
+    ``kf_adam`` carries the window Adam state across calls. All tensors lie
+    on one device; ``generator`` is a ``torch.Generator`` on it."""
+    _check_supported(cfg, mcfg, axis_name)
+    draws = draws or MapDraws()
+    dev = cams.T.device
+    b = cams.T.shape[0]
+    n = m.capacity
+    cfg_iter = cfg._replace(with_n_touched=False)
+    lr8 = torch.cat([torch.full((n_,), lr, device=dev) for n_, lr in (
+        (3, mcfg.lr_trans), (3, mcfg.lr_rot), (1, mcfg.lr_exposure_a),
+        (1, mcfg.lr_exposure_b))])
+    opt_mask = torch.cat([cams.opt_pose[:, None].expand(b, 6),
+                          cams.opt_exposure[:, None].expand(b, 2)], dim=-1)
+    valid_f = cams.valid.to(torch.float32)
+
+    def tiles(imgs):
+        return [tile_images(im, intr, cfg_iter) for im in imgs]
+
+    gt_tb, mask_tb = tiles(cams.gt_image), tiles(cams.mapping_mask)
+    gtd_tb = None if mcfg.monocular else tiles(cams.gt_depth)
+    tx0f, ty0f = _tile_origins(intr, cfg_iter, dev)
+    n_fine = tx0f.shape[0]
+    use_sub = mcfg.tile_frac < 1.0
+    # a multiple of 8 tiles, as the JAX package keeps it; it sets px_frac
+    n_sub = max(8, int(n_fine * mcfg.tile_frac) // 8 * 8)
+    px_frac = n_sub / n_fine if use_sub else 1.0
+
+    lists = _build_lists(m, cams.T, intr, cfg_iter, mcfg.bin_margin)
+    kam, kav, kat = kf_adam if kf_adam is not None else new_kf_adam(b, dev)
+    T, ea, eb = cams.T, cams.ea, cams.eb
+    tau0 = torch.zeros(6, dtype=torch.float32, device=dev)
+    off0 = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    itc, since = int(it_count), 0
+    for i in range(n_iters):
+        itc += 1
+        gauss = m.render_view()
+        tsel_b = None
+        if use_sub:
+            tsel_b = _draw(draws.tsel, i)
+            if tsel_b is None:
+                tsel_b = torch.stack([
+                    torch.randperm(n_fine, generator=generator,
+                                   device=dev)[:n_sub] for _ in range(b)])
+            tsel_b = tsel_b.to(dev)
+
+        g_leaves = None
+        g_tau, g_ea, g_eb = [], [], []
+        accum = torch.zeros(n, dtype=torch.float32, device=dev)
+        denom = torch.zeros_like(accum)
+        radii_d = torch.zeros_like(accum)
+        visible_any = torch.zeros(n, dtype=torch.bool, device=dev)
+        for v in range(b):
+            li, lv = lists[v].idx, lists[v].vld
+            gt_t, mask_t = gt_tb[v], mask_tb[v]
+            gtd_t = None if gtd_tb is None else gtd_tb[v]
+            txy = None
+            if use_sub:
+                ts = tsel_b[v]
+                li, lv, gt_t, mask_t = li[ts], lv[ts], gt_t[ts], mask_t[ts]
+                if gtd_t is not None:
+                    gtd_t = gtd_t[ts]
+                txy = (tx0f[ts], ty0f[ts])
+            _, gl, gt_v, go_v, gea_v, geb_v, radii_v = render_map_grad(
+                gauss, T[v], intr, cfg_iter, TileLists(idx=li, vld=lv), gt_t,
+                mask_t, tau0, off0, ea[v], eb[v], initialization, mcfg.alpha,
+                gtd_t=gtd_t, txy=txy, px_frac=px_frac)
+            s = valid_f[v]
+            gl = [g * s for g in gl]
+            g_leaves = gl if g_leaves is None else [
+                a + c for a, c in zip(g_leaves, gl)]
+            g_tau.append(gt_v * s)
+            g_ea.append(gea_v * s)
+            g_eb.append(geb_v * s)
+            # densification statistics (per-view screen-space gradient
+            # norms of the visible Gaussians, summed over views)
+            vis = (radii_v > 0) & cams.valid[v]
+            norms = torch.linalg.norm(go_v * s, dim=-1)
+            accum = accum + torch.where(vis, norms, torch.zeros_like(norms))
+            denom = denom + vis.to(torch.float32)
+            radii_d = torch.maximum(
+                radii_d, torch.where(vis, radii_v, torch.zeros_like(radii_v)))
+            visible_any = visible_any | vis
+
+        ls = m.params.log_scale.detach().requires_grad_(True)
+        with torch.enable_grad():
+            reg = mcfg.isotropic_weight * losses.isotropic_reg(
+                torch.exp(ls), m.active)
+        (g_iso,) = torch.autograd.grad(reg, ls)
+        g_leaves[2] = g_leaves[2] + g_iso
+        m = m._replace(grad_accum=m.grad_accum + accum,
+                       denom=m.denom + denom,
+                       max_radii2d=torch.maximum(m.max_radii2d, radii_d))
+        m = gm.adam_step(m, gm.ParamLeaves(*g_leaves), hyper, step=itc - 1)
+
+        if initialization:
+            do_dens = itc % mcfg.init_gaussian_update == 0
+            do_reset = itc in (mcfg.init_gaussian_reset,
+                               mcfg.densify_from_iter)
+            dens = (mcfg.init_gaussian_th, mcfg.init_gaussian_extent, None)
+        else:
+            do_dens = (itc % mcfg.gaussian_update_every
+                       == mcfg.gaussian_update_offset)
+            do_reset = itc % mcfg.gaussian_reset == 0 and not do_dens
+            dens = (mcfg.gaussian_th, mcfg.gaussian_extent,
+                    mcfg.size_threshold)
+        if do_dens:
+            noise = _draw(draws.split_noise, i)
+            m = gm.densify_and_prune(
+                m, generator, mcfg.densify_grad_threshold, *dens, hyper,
+                clone_cap=mcfg.clone_cap, split_cap=mcfg.split_cap,
+                samples=None if noise is None else noise.to(dev))
+        if do_reset:
+            m = (gm.reset_opacity(m) if initialization
+                 else gm.reset_opacity_nonvisible(m, visible_any))
+
+        if not initialization:
+            g8 = torch.cat([torch.stack(g_tau), torch.stack(g_ea)[:, None],
+                            torch.stack(g_eb)[:, None]], dim=-1)
+            g8 = torch.where(opt_mask, g8, torch.zeros_like(g8))
+            kat += 1
+            kam = 0.9 * kam + 0.1 * g8
+            kav = 0.999 * kav + 0.001 * g8 * g8
+            d8 = -lr8 * (kam / (1 - 0.9 ** kat)) / (
+                torch.sqrt(kav / (1 - 0.999 ** kat)) + 1e-8)
+            d8 = torch.where(opt_mask, d8, torch.zeros_like(d8))
+            T = se3.retract(T, d8[:, :6])
+            ea = ea + d8[:, 6]
+            eb = eb + d8[:, 7]
+
+        # rebuild when stale or when the Gaussian set changed (new slots
+        # are in no list)
+        since += 1
+        if since >= mcfg.rebin_every or do_dens:
+            lists = _build_lists(m, T, intr, cfg_iter, mcfg.bin_margin)
+            since = 0
+
+    gauss = m.render_view()
+    visibility = torch.stack([
+        (render(gauss, T[v], intr, cfg, lists=lists[v]).n_touched > 0)
+        & cams.valid[v] for v in range(b)])
+    return MapResult(m=m, cams=cams._replace(T=T, ea=ea, eb=eb),
+                     it_count=itc, visibility=visibility,
+                     kf_adam=(kam, kav, kat))
+
+
+def covisibility_prune(m: gm.GaussianMap, visibility, window_kf_ids,
+                       initialized: bool, mcfg: MapConfig,
+                       prune_mode: str = "slam", prune_coviz: int = 3):
+    """Occlusion-aware pruning of Gaussians seen by too few window views
+    (monocular only, as the reference). Returns (map, n_obs)."""
+    n_obs = torch.sum(visibility, dim=0).to(torch.int32)
+    if prune_mode == "odometry":
+        to_prune = n_obs < 3
+    else:
+        cutoff_id = torch.sort(window_kf_ids, descending=True).values[2]
+        mask = (m.kf_id >= cutoff_id) if initialized else (m.kf_id >= 0)
+        to_prune = (n_obs <= prune_coviz) & mask
+    to_prune = to_prune & m.active
+    m = m._replace(n_obs=torch.where(m.active, n_obs, torch.zeros_like(n_obs)))
+    if mcfg.monocular:
+        m = gm.prune(m, to_prune)
+    return m, n_obs
+
+
+def color_refinement_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int,
+                           generator: Optional[torch.Generator],
+                           intr: Intrinsics, cfg: RenderConfig,
+                           mcfg: MapConfig, hyper: gm.MapHyper,
+                           views=None) -> gm.GaussianMap:
+    """Photometric refinement: per iteration one random staged view, loss
+    (1 - lambda) L1 + lambda (1 - SSIM) against its raw ground truth (no
+    exposure, no mask), gradients through the differentiable render (the
+    blend VJP kernel), Adam on the map with the xyz schedule at the local
+    iteration. The staged views' lists are rebuilt every ``rebin_every``
+    iterations. ``views`` [n_iters] replaces the view draws."""
+    _check_supported(cfg, mcfg, None)
+    dev = cams.T.device
+    cfg_iter = cfg._replace(with_n_touched=False)
+    n_valid = torch.clamp(torch.sum(cams.valid.to(torch.int64)), min=1)
+    lam = mcfg.lambda_dssim
+    for i in range(n_iters):
+        if i % mcfg.rebin_every == 0:
+            lists = _build_lists(m, cams.T, intr, cfg_iter, mcfg.bin_margin)
+            l_idx = torch.stack([x.idx for x in lists])
+            l_vld = torch.stack([x.vld for x in lists])
+        if views is not None:
+            vi = torch.as_tensor(views[i], device=dev).reshape(1)
+        else:
+            u = torch.rand((), generator=generator, device=dev)
+            vi = torch.minimum((u * n_valid).long(), n_valid - 1).reshape(1)
+
+        def pick(x):
+            return x.index_select(0, vi)[0]
+
+        leaves = [p.detach().requires_grad_(True) for p in m.params]
+        with torch.enable_grad():
+            gauss = GaussianArrays(*leaves, active=m.active)
+            out = render(gauss, pick(cams.T), intr, cfg_iter,
+                         lists=TileLists(idx=pick(l_idx), vld=pick(l_vld)))
+            gt = pick(cams.gt_image)
+            l1 = torch.mean(losses.abs_(out.image - gt))
+            loss = (1.0 - lam) * l1 + lam * (1.0 - ssim_fn(out.image, gt))
+        g = torch.autograd.grad(loss, leaves)
+        m = gm.adam_step(m, gm.ParamLeaves(*g), hyper, step=i + 1)
+    return m

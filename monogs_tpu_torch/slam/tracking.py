@@ -146,14 +146,13 @@ def _check_supported(cfg: RenderConfig, tcfg: TrackConfig):
     if tcfg.bin_margin <= 0:
         raise NotImplementedError(
             "bin_margin == 0 (per-iteration rebinning through the "
-            "differentiable blend) needs the blend VJP kernel, which arrives "
-            "with the mapping slice")
+            "differentiable blend) arrives with the tracking A/B-knobs slice")
     if tcfg.fo_max_iter > 0 and not (
             tcfg.fo_tile_frac < 1.0 and tcfg.fo_fused and tcfg.use_huber):
         raise NotImplementedError(
             "the unfused first-order path (fo_tile_frac == 1, fo_fused "
             "False or use_huber False) differentiates through the blend and "
-            "needs its VJP kernel, which arrives with the mapping slice")
+            "arrives with the tracking A/B-knobs slice")
 
 
 def _huber_chain(r, delta):

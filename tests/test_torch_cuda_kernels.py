@@ -36,18 +36,32 @@ def card():
     return torch.device("cuda")
 
 
-def scene_rows(dev, n=3000):
+def scene_rows(dev, n=3000, k_fine=96):
+    cfg = CFG._replace(k_fine=k_fine)
     g = torch.Generator().manual_seed(0)
     scene = make_synthetic_scene(g, n=n, spread=2.0, depth_mean=3.0,
                                  scale_min=0.03, scale_max=0.09)
     scene = type(scene)(*(x.to(dev) for x in scene))
     T = se3.se3_exp(torch.tensor([0.01, -0.02, 0.0, 0.01, 0.0, -0.01],
                                  device=dev))
-    d = rr.frame_rows(scene, T, INTR, CFG)[0]
-    lists = rr.build_tile_lists(scene, T, INTR, CFG, margin=8.0)
-    d_j, d_tan = rr.tile_rows_jvp(scene, T, INTR, CFG, lists)
-    tx0, ty0 = rr._tile_origins(INTR, CFG, dev)
-    return d, d_j, d_tan, tx0, ty0, rr._tile_pmat(CFG, dev)
+    d = rr.frame_rows(scene, T, INTR, cfg)[0]
+    lists = rr.build_tile_lists(scene, T, INTR, cfg, margin=8.0)
+    d_j, d_tan = rr.tile_rows_jvp(scene, T, INTR, cfg, lists)
+    tx0, ty0 = rr._tile_origins(INTR, cfg, dev)
+    return d, d_j, d_tan, tx0, ty0, rr._tile_pmat(cfg, dev)
+
+
+def ground_truth(d, tx0, ty0, pmat, dev, seed=1):
+    """gt image (render + noise), mask and gt depth [T, P, .] for rows d,
+    residuals kept away from 0 (the L1 sign)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    img = bl.blend_lists_plain(d, tx0, ty0, pmat, W, H)
+    gt = (img[..., :3] + 0.03 + 0.03 * torch.randn(
+        img[..., :3].shape, generator=g, device=dev)).contiguous()
+    mask = (torch.rand(img[..., :1].shape, generator=g, device=dev)
+            > 0.2).float()
+    gtd = (img[..., 3:4] * 1.02 + 0.05).contiguous()
+    return gt, mask, gtd
 
 
 def assert_outs(got, want):
@@ -107,6 +121,94 @@ def test_jvp8_on_card(card):
                                                 pmat, W, H)
     assert_outs(outs, p_outs)
     assert_per_column(touts, p_touts, 2e-4)
+
+
+@pytest.mark.parametrize("k_fine", [96, 256])
+@pytest.mark.parametrize("mode", ["mono", "rgbd", "init", "subset"])
+def test_map_grad_on_card(card, mode, k_fine):
+    d, _, _, tx0, ty0, pmat = scene_rows(card, k_fine=k_fine)
+    gt, mask, gtd = ground_truth(d, tx0, ty0, pmat, card)
+    px_frac = 1.0
+    if mode == "subset":
+        sel = torch.arange(0, d.shape[0], 2, device=card)
+        d, tx0, ty0 = d[sel].contiguous(), tx0[sel], ty0[sel]
+        gt, mask, gtd = gt[sel], mask[sel], gtd[sel]
+        px_frac = 0.5
+    args = (d, tx0, ty0, pmat, gt, mask, torch.tensor(1.07, device=card),
+            torch.tensor(0.015, device=card), W, H, mode != "init", 0.9,
+            1e-8)
+    kw = dict(gtd_t=gtd if mode == "rgbd" else None, px_frac=px_frac)
+    n0 = dict(bl.LAUNCHES)
+    dd, sums = bl.map_grad_lists(*args, **kw)
+    pdd, psums = bl.map_grad_lists_plain(*args, **kw)
+    key = "map_grad_rgbd" if mode == "rgbd" else "map_grad"
+    assert bl.LAUNCHES[key] == n0[key] + 1
+    assert_per_column(dd, pdd, 1e-4)
+    torch.testing.assert_close(sums, psums, rtol=1e-4, atol=1e-5)
+    assert float(psums[:, 0].sum()) > 0 and float(torch.abs(pdd).max()) > 0
+
+
+@pytest.mark.parametrize("k_fine", [96, 256])
+def test_blend_vjp_on_card(card, k_fine):
+    d, _, _, tx0, ty0, pmat = scene_rows(card, k_fine=k_fine)
+    g = torch.Generator(device=card).manual_seed(2)
+    g_outs = torch.randn((d.shape[0], pmat.shape[1], 8), generator=g,
+                         device=card)
+    dd = bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W, H)
+    want = bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H)
+    assert_per_column(dd, want, 1e-4)
+
+
+def test_blend_function_backward_on_card(card):
+    """The differentiable blend's backward (the VJP kernel) against
+    autograd through the plain version, on the same card."""
+    d, _, _, tx0, ty0, pmat = scene_rows(card)
+    g = torch.Generator(device=card).manual_seed(3)
+    wts = torch.randn((d.shape[0], pmat.shape[1], 8), generator=g,
+                      device=card)
+    grads = []
+    for fn in (bl.blend_lists_fn, bl.blend_lists_plain):
+        x = d.clone().requires_grad_(True)
+        (torch.sum(fn(x, tx0, ty0, pmat, W, H) * wts)).backward()
+        grads.append(x.grad)
+    assert_per_column(grads[0], grads[1], 1e-4)
+
+
+def test_densify_and_prune_on_card(card):
+    """densify_and_prune with clones, splits (some beyond split_cap) and
+    prunes on the card (compaction by cumsum and searchsorted, the split
+    noise turned into each Gaussian's frame, the slot fill) against the
+    same call on the CPU: the same slots, parameters within float32
+    rounding."""
+    from monogs_tpu_torch.models import gaussian_map as gm
+
+    g = torch.Generator().manual_seed(4)
+    n, cap = 600, 2048
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g)
+
+    leaves = gm.ParamLeaves(
+        xyz=3.0 * rand(n, 3) - 1.5, sh=rand(n, 1, 3),
+        log_scale=torch.log(0.01 + 0.08 * rand(n, 3)),
+        quat=torch.nn.functional.normalize(rand(n, 4) - 0.5, dim=-1),
+        opa_logit=4.0 * rand(n, 1) - 1.0)
+    m = gm.insert(gm.new_map(cap, device="cpu"), leaves, n, kf_id=3)
+    m = m._replace(grad_accum=4e-4 * rand(cap), denom=torch.ones(cap))
+    samples = torch.randn((2, 128, 3), generator=g)
+    args = (2e-4, 0.3, 6.0, 20, gm.MapHyper())
+    kw = dict(clone_cap=256, split_cap=128)
+    hot = m.active & (m.grad_accum >= 2e-4)
+    small = torch.exp(m.params.log_scale).max(-1).values <= 0.06
+    assert int((hot & small).sum()) > 0 and int((hot & ~small).sum()) > 128
+    want = gm.densify_and_prune(m, None, *args, samples=samples, **kw)
+    got = gm.densify_and_prune(m.to(card), None, *args,
+                               samples=samples.to(card), **kw).to("cpu")
+    for k in ("active", "kf_id", "n_obs"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    for k, x, y in zip(got.params._fields, got.params, want.params):
+        torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-6, msg=k)
+    assert int(want.n_active) != int(m.n_active)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(card):

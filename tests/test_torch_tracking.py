@@ -136,8 +136,8 @@ def test_cuda_default_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("change,slice_name", [
-    (dict(bin_margin=0.0), "mapping slice"),
-    (dict(fo_fused=False), "mapping slice"),
+    (dict(bin_margin=0.0), "tracking A/B-knobs slice"),
+    (dict(fo_fused=False), "tracking A/B-knobs slice"),
     (dict(stage="fo"), "profiling slice"),
 ])
 def test_unported_branches_raise(change, slice_name):
