@@ -8,14 +8,19 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 JAX. Phases, each of which exits non-zero on failure:
 
-1. build the list-blend kernels from ``monogs_tpu_torch/csrc`` (nvcc for
-   sm_90a) and print the build time and the card's name and power limit;
+1. build the kernels from ``monogs_tpu_torch/csrc`` (one nvcc for sm_90a
+   per source, started together) and print the build time and the card's
+   name and power limit;
 2. kernel phase: run each kernel on the card at the shapes of its path
    (640x480 in 16 px tiles, k_fine 96: a 12 % tile subset for tracking, 320
    and all 1280 tiles for mapping, plus one RGB-D mapping call at the
    320x240 / k_fine 256 shapes of configs/synthetic/rgbd.yaml), on rows of
    the main path's scene, and hold it against its plain PyTorch version on
-   the same inputs; time both with CUDA events;
+   the same inputs; time both with CUDA events; then the four macro-list
+   kernels of the "pallas" and "pallas_compact" render backends on the
+   scene's macro lists at frame 1's pose with the L1 cotangent of frame 2,
+   at the bench shape (k_macro 1024, k_fine 96) and at the 320x240 /
+   k_macro 4096 / k_fine 256 shape of configs/synthetic/rgbd.yaml;
 3. tracking path: render the 22 frames of a jittered orbit around a
    100k-Gaussian synthetic scene through the port's ``render``, track a
    20-frame monocular chain with the shipped tracking configuration
@@ -28,7 +33,13 @@ JAX. Phases, each of which exits non-zero on failure:
    bench_mapping's delta method (at 0.25 the timed iterations include the
    densify and its list rebuild); a densify with clones and splits held
    against the same call on the CPU; RGB-D BA; initialisation on one view;
-   covisibility pruning; colour refinement; one profiled BA iteration.
+   covisibility pruning; colour refinement; one profiled BA iteration;
+5. macro-backend mapping path (the unfused branch, ``bin_margin`` 0, every
+   render binning its view anew): one frame on "xla", "pallas_compact" and
+   "pallas", then 10 BA iterations of the same window on "pallas", 10 more
+   on "pallas_compact", 5 RGB-D iterations on "pallas" and 10
+   colour-refinement steps without lists, timed by the delta method, with
+   host syncs, peak memory and one profiled iteration.
 Each path's launch counters are zeroed just before it and read just after.
 
 Output, one JSON object per line: each path's metrics, then
@@ -84,13 +95,29 @@ def kernel_ops(name, n, e_exp):
       the VJP's r, g, b, depth and acc), the suffix (2) and a sum of w g
       per feature column (6 or 8); live pairs add the same 16 as above.
 
+    - the macro-list kernels (``macro_*``, ``compact_*``) walk only the rows
+      that enter a tile, with the list kernels' costs per pair, and test the
+      box of every valid macro row (below its list's count) against every
+      fine tile of its macro: four adds and four compares (8, ``box_tests``
+      pairs). Their VJPs also add up each row's cotangent over the fine
+      tiles it entered: 16 adds for each such (row, fine tile) beyond the
+      row's first (``ft_adds``). The index scan and the per-fine-tile
+      partials are this design's cost, not the function's, and are left
+      out.
+
     Work per row or per pixel (the row cotangents, the residual), under 2 %
     of the total at these shapes, is left out: a lower bound.
     """
     fwd = (16 + e_exp) * n["walked"] + 3 * n["ok"] + 10 * n["contrib"]
     live, dead = n["live"], n["contrib"] - n["live"]
     fo = fwd + 30 * live + 14 * dead
+    box = 8 * n.get("box_tests", 0)
+    bwd = fwd + 34 * live + 18 * dead
     return {
+        "macro_fwd": fwd + box,
+        "compact_fwd": fwd + box,
+        "macro_bwd": bwd + box + 16 * n.get("ft_adds", 0),
+        "compact_bwd": bwd + box + 16 * n.get("ft_adds", 0),
         "fwd": fwd,
         "fwd_counts": fwd + n["contrib"],
         "fo_grad": fo,
@@ -98,7 +125,7 @@ def kernel_ops(name, n, e_exp):
         "jvp8": fwd + (12 + 6 * 34) * live + 6 * 19 * dead,
         "map_grad": fwd + 29 * live + 13 * dead,
         "map_grad_rgbd": fwd + 33 * live + 17 * dead,
-        "bwd": fwd + 34 * live + 18 * dead,
+        "bwd": bwd,
     }[name.split("@")[0]]
 
 
@@ -184,8 +211,27 @@ KERNELS = {
                       "sums rtol 1e-4 + 1e-4"),
 }
 
+KERNELS.update({
+    "macro_fwd": ("monogs_tpu/render/pallas_blend.py:197 (_fwd_kernel)",
+                  "image/opacity atol 2e-5, depth atol 2e-4"),
+    "macro_bwd": ("monogs_tpu/render/pallas_blend.py:259 (_bwd_kernel)",
+                  "ddata rtol 1e-3 + 1e-4 x column max; two launches "
+                  "bit-identical"),
+    "compact_fwd": ("monogs_tpu/render/pallas_compact.py:244 (_fwd_kernel)",
+                    "image/opacity atol 2e-5, depth atol 2e-4"),
+    "compact_bwd": ("monogs_tpu/render/pallas_compact.py:262 (_bwd_kernel)",
+                    "ddata rtol 1e-3 + 1e-4 x column max; two launches "
+                    "bit-identical"),
+})
+
 TRACK_KERNELS = ("fwd", "fwd_counts", "fo_grad", "fo_grad_rgbd", "jvp8")
 MAP_KERNELS = ("fwd", "fwd_counts", "bwd", "map_grad", "map_grad_rgbd")
+MACRO_KERNELS = ("macro_fwd", "macro_bwd", "compact_fwd", "compact_bwd")
+
+
+def kernel_source(kind):
+    name = "blend_macros" if kind in MACRO_KERNELS else "blend_lists"
+    return f"monogs_tpu_torch/csrc/{name}.cu"
 
 SHAPE = dict(fx=535.4, fy=539.2, cx=320.1, cy=247.6, width=640, height=480)
 N_GAUSS = 100_000
@@ -198,6 +244,7 @@ MAP_XYZ_NOISE = 0.03    # metres, see map_window
 # the L1 of the window after the 0.25-tile_frac phase must fall below
 # this share of the L1 before it
 MAP_L1_RATIO = 0.95
+MACRO_ITERS = 10        # BA iterations of each macro-backend phase
 
 
 class Failure(Exception):
@@ -222,6 +269,33 @@ def import_port():
     pkg = Path(monogs_tpu_torch.__file__).resolve().parent
     check(pkg.parent == ROOT, f"monogs_tpu_torch imported from {pkg}, not "
           f"from this checkout")
+
+
+def counters():
+    """The launch counters of the two kernel modules."""
+    from monogs_tpu_torch.render import blend_lists as bl
+    from monogs_tpu_torch.render import blend_macros as bm
+
+    return bl.LAUNCHES, bm.LAUNCHES
+
+
+def all_launches():
+    out = {}
+    for c in counters():
+        out.update(c)
+    return out
+
+
+def reset_launches():
+    for c in counters():
+        for k in c:
+            c[k] = 0
+
+
+def restore_launches(saved):
+    for c in counters():
+        for k in c:
+            c[k] = saved[k]
 
 
 def smi_line():
@@ -311,13 +385,14 @@ def render_frames(torch, scene, poses, intr, cfg, with_depth):
 
 # ----------------------------------------------------------- kernel phase
 
-def pair_counts(torch, bl, d, tx0, ty0, pmat, W, H):
+def pair_counts(torch, bl, d, tx0, ty0, pmat, W, H, row_mask=None):
     """(row, pixel) pairs of each kind that these rows give (kernel_ops):
     ``walked``, each image pixel's rows up to and including the one at which
     it terminates (all of them if it never does; pixels beyond the image
-    edge walk none); ``ok``, walked pairs that pass the alpha test;
-    ``contrib``, ok pairs before termination; ``live``, contrib pairs with
-    alpha below its 0.99 clamp."""
+    edge walk none), only rows of ``row_mask`` [T, K] where given;
+    ``ok``, walked pairs that pass the alpha test; ``contrib``, ok pairs
+    before termination; ``live``, contrib pairs with alpha below its 0.99
+    clamp."""
     f = bl._forward_plain(d, tx0, ty0, pmat, W, H)
     kf = d.shape[1]
     term = f["ok"] & ~f["contrib"]                       # [T, K, P]
@@ -326,6 +401,8 @@ def pair_counts(torch, bl, d, tx0, ty0, pmat, W, H):
               & (ty0[:, None] + pmat[4] <= H - 1))
     k = torch.arange(kf, device=d.device)[None, :, None]
     walked = (k < stop[:, None, :]) & pix_ok[:, None, :]
+    if row_mask is not None:
+        walked = walked & row_mask[..., None]
     return dict(walked=int(walked.sum()), ok=int((walked & f["ok"]).sum()),
                 contrib=int(f["contrib"].sum()),
                 live=int((f["contrib"] & (f["alpha"] < 0.99)).sum()))
@@ -354,7 +431,7 @@ def outs_err(torch, got, want):
 
 
 def record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
-                  out_bytes, pairs, e_exp, strict=True):
+                  out_bytes, pairs, e_exp, strict=True, plain_reps=20):
     """Time kernel ``name`` (``fn``) and its plain version, compute its
     bound from this run's pairs and bytes, and add its entry. ``name`` may
     carry a shape tag after "@"."""
@@ -364,13 +441,12 @@ def record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
           f"{name}: kernel disagrees with its plain version "
           f"(max abs error {err:.3e}; tolerance {KERNELS[kind][1]})")
     ms = cuda_ms(torch, fn)
-    plain_ms = cuda_ms(torch, plain, reps=20, warmup=1)
+    plain_ms = cuda_ms(torch, plain, reps=plain_reps, warmup=1)
     ops = kernel_ops(name, pairs, e_exp)
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS_PER_S * 1e3
     entries[name] = dict(
-        name=name, route="cuda",
-        source="monogs_tpu_torch/csrc/blend_lists.cu",
+        name=name, route="cuda", source=kernel_source(kind),
         replaces=KERNELS[kind][0], launches=0, max_abs_err=err,
         tol=KERNELS[kind][1], ms=ms, plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
@@ -488,6 +564,19 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
     return entries
 
 
+def l1_cotangent(torch, outs, gt, W, H):
+    """Output cotangents [..., P, 8] of colour refinement's L1 term
+    (0.8 |image - gt| over 3 W H values) of the blend outputs ``outs``
+    against tiled ground truth ``gt`` [..., P, 3], on a grey background so
+    that the acc column carries one too."""
+    bg = torch.tensor([0.5, 0.5, 0.5], device=outs.device)
+    colors = outs[..., :3] + (1.0 - outs[..., 4:5]) * bg
+    g_col = 0.8 / (3 * W * H) * torch.sign(colors - gt)
+    return torch.cat([g_col, torch.zeros_like(g_col[..., :1]),
+                      -(g_col * bg).sum(-1, keepdim=True),
+                      torch.zeros_like(g_col)], dim=-1).contiguous()
+
+
 def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
     """The mapping path's kernels against their plain versions: the blend
     VJP over the whole frame with a real colour-refinement cotangent (L1
@@ -516,13 +605,9 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
     with torch.no_grad():
         d = rr.frame_rows(scene, pose, intr, cfg_t)[0]
         outs = bl.blend_lists(d, tx0, ty0, pmat, W, H)
-        bg = torch.tensor([0.5, 0.5, 0.5], device=dev)
-        colors = outs[..., :3] + (1.0 - outs[..., 4:5]) * bg
-        gt = rr.tile_images(frame.gt_image, intr, cfg)
-        g_col = 0.8 / (3 * W * H) * torch.sign(colors - gt)
-        g_outs = torch.cat([g_col, torch.zeros_like(g_col[..., :1]),
-                            -(g_col * bg).sum(-1, keepdim=True),
-                            torch.zeros_like(g_col)], dim=-1).contiguous()
+        g_outs = l1_cotangent(torch, outs,
+                              rr.tile_images(frame.gt_image, intr, cfg), W,
+                              H)
     dd = bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W, H)
     want = bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H)
     err, ok = per_column_err(torch, dd, want, 1e-4)
@@ -531,7 +616,7 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
            lambda: bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H),
            err, ok, nbytes(d, tx0, ty0, pmat, g_outs), nbytes(dd),
            pair_counts(torch, bl, d, tx0, ty0, pmat, W, H))
-    del dd, want, outs, colors, g_outs
+    del dd, want, outs, g_outs
 
     # 2. fused mapping step
     def map_grad_case(name, intr_c, cfg_c, n_sub, rgbd):
@@ -594,6 +679,122 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
     return entries
 
 
+def macro_lists(torch, scene, pose, intr, cfg):
+    """The render's inputs to the macro-list kernels at ``pose``: (data_m
+    [Tm, Km, 16], xy0 [Tm, 2], counts [Tm], pmat [6, P])."""
+    from monogs_tpu_torch.render import renderer as rr
+
+    with torch.no_grad():
+        _, packed, _, aux = rr._project(scene, pose, intr, cfg)
+        data_m, xy0, counts = rr.macro_rows(packed, aux)
+        return (data_m.contiguous(), xy0, counts,
+                rr._tile_pmat(cfg, pose.device))
+
+
+def macro_pairs(torch, args, tile, fs, W, H, k_fine=None):
+    """kernel_ops' pair counts of a macro-list kernel on these lists: the
+    pairs of the rows that enter each fine tile (all of them for the
+    masked walk, the first ``k_fine`` for the compact blend), the box tests
+    of the valid rows, and the adds of the sum over fine tiles."""
+    from monogs_tpu_torch.render import blend_lists as bl
+    from monogs_tpu_torch.render import blend_macros as bm
+
+    data_m, xy0, counts, pmat = args
+    n_macro, km, _ = data_m.shape
+    ft, p = fs * fs, pmat.shape[1]
+    tot = dict(walked=0, ok=0, contrib=0, live=0)
+    entered = rows_entered = 0
+    for sl in bm.macro_chunks(n_macro, ft, k_fine or km, p):
+        if k_fine is None:
+            d, tx0, ty0 = bm._walk_rows(data_m, xy0, counts, tile, fs, sl)
+            sel = (d[..., bl._LOGO] > -1e29).reshape(-1, ft, km)
+        else:
+            d, idx, vld, tx0, ty0 = bm.compact_chunk(data_m, xy0, counts,
+                                                     tile, fs, k_fine, sl)
+            sel = torch.zeros(idx.shape[:2] + (km + 1,), dtype=torch.bool,
+                              device=d.device).scatter(
+                2, torch.where(vld, idx, km), True)[..., :km]
+        entered += int(sel.sum())
+        rows_entered += int(sel.any(1).sum())
+        # rows that do not enter the tile carry LOGO -1e30 and are skipped
+        n = pair_counts(torch, bl, d, tx0, ty0, pmat, W, H,
+                        row_mask=d[..., bl._LOGO] > -1e29)
+        for k in tot:
+            tot[k] += n[k]
+        del d, sel
+    valid = int(torch.clamp(counts, max=km).sum())
+    return dict(tot, box_tests=ft * valid, ft_adds=entered - rows_entered)
+
+
+def macro_kernel_phase(torch, intr, cfg, scene, pose, pose2, frame, e_exp):
+    """The four macro-list kernels against their plain versions on the
+    scene's macro lists at ``pose``, the VJPs with the L1 cotangent of the
+    view at ``pose2`` (``frame`` at the bench shape, a render at the
+    320x240 one); each VJP is launched twice and must give bit-identical
+    row cotangents. At the bench shape (640x480, k_macro 1024, k_fine 96)
+    and at configs/synthetic/rgbd.yaml's (320x240, k_macro 4096, k_fine
+    256)."""
+    from monogs_tpu_torch.render import Intrinsics
+    from monogs_tpu_torch.render import blend_macros as bm
+    from monogs_tpu_torch.render import render
+    from monogs_tpu_torch.render import renderer as rr
+
+    entries = {}
+    intr_s = Intrinsics(fx=320.0, fy=320.0, cx=159.5, cy=119.5, width=320,
+                        height=240)
+    cases = (("", intr, cfg, frame.gt_image),
+             ("@320x240_km4096_kf256", intr_s,
+              cfg._replace(k_macro=4096, k_fine=256), None))
+    for tag, intr_c, cfg_c, gt_img in cases:
+        W, H = intr_c.width, intr_c.height
+        tile, fs, kf = cfg_c.tile, cfg_c.macro_tiles, cfg_c.k_fine
+        args = macro_lists(torch, scene, pose, intr_c, cfg_c)
+        if gt_img is None:
+            with torch.no_grad():
+                gt_img = render(scene, pose2, intr_c, cfg_c._replace(
+                    with_n_touched=False)).image
+        gt = rr.tile_images(gt_img, intr_c, cfg_c).reshape(
+            args[0].shape[0], fs * fs, tile * tile, 3)
+        log(f"macro lists{tag}: data_m {tuple(args[0].shape)}, rows "
+            f"{int(args[2].sum())}")
+        geo = (tile, fs, W, H)
+        for kind, k_fine, fwd_p, vjp_p, extra in (
+                ("macro", None, bm.blend_macros_plain,
+                 bm.blend_macros_vjp_plain, ()),
+                ("compact", kf, bm.blend_compact_plain,
+                 bm.blend_compact_vjp_plain, (kf,))):
+            def fwd(k_fine=k_fine):
+                return bm.blend_macros(*args, *geo, k_fine=k_fine)
+
+            def vjp(g_outs, k_fine=k_fine):
+                return bm.blend_macros_vjp(*args, g_outs, *geo,
+                                           k_fine=k_fine)
+
+            pairs = macro_pairs(torch, args, tile, fs, W, H, k_fine)
+            outs = fwd()
+            err, ok = outs_err(torch, outs, fwd_p(*args, *geo, *extra))
+            check(float(outs[..., 4].max()) > 0, f"{kind}_fwd{tag}: empty")
+            record_kernel(torch, entries, f"{kind}_fwd{tag}", fwd,
+                          lambda: fwd_p(*args, *geo, *extra), err, ok,
+                          nbytes(*args), nbytes(outs), pairs, e_exp,
+                          plain_reps=5)
+            g_outs = l1_cotangent(torch, outs, gt, W, H)
+            dd, dd2 = vjp(g_outs), vjp(g_outs)
+            want = vjp_p(*args, g_outs, *geo, *extra)
+            err, ok = per_column_err(torch, dd, want, 1e-4)
+            check(bool(torch.equal(dd, dd2)),
+                  f"{kind}_bwd{tag}: two launches differ")
+            check(float(torch.abs(want).max()) > 0,
+                  f"{kind}_bwd{tag}: zero row cotangents")
+            record_kernel(torch, entries, f"{kind}_bwd{tag}",
+                          lambda: vjp(g_outs),
+                          lambda: vjp_p(*args, g_outs, *geo, *extra), err,
+                          ok, nbytes(*args, g_outs), nbytes(dd), pairs,
+                          e_exp, plain_reps=5)
+            del outs, g_outs, dd, dd2, want
+    return entries
+
+
 # -------------------------------------------------------------- main path
 
 def track_chain(torch, scene, frames, poses, intr, cfg, tcfg, seed0):
@@ -647,10 +848,8 @@ def chain_metrics(torch, outs, poses, seconds):
 
 
 def main_path(torch, intr, cfg, tcfg, scene, poses_fn):
-    from monogs_tpu_torch.render import blend_lists as bl
-
     torch.cuda.reset_peak_memory_stats()
-    bl.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     poses = poses_fn(N_FRAMES + 2, 42)
     # with depth, for the mapping path's RGB-D phase (mono tracking reads
@@ -671,7 +870,7 @@ def main_path(torch, intr, cfg, tcfg, scene, poses_fn):
     rgbd = dict(coverage=cover_d,
                 **chain_metrics(torch, outs_d, poses_d, secs_d))
     torch.cuda.synchronize()
-    launches = dict(bl.LAUNCHES)
+    launches = all_launches()
 
     for name, m in (("mono", mono), ("rgbd", rgbd)):
         log(f"{name} chain: {json.dumps(m)}")
@@ -719,6 +918,7 @@ def profile_frame(torch, scene, frames, poses, intr, cfg, tcfg):
 
 LIST_BLEND = ("::fwd_kernel<", "::fo_grad_kernel<", "::jvp8_kernel(",
               "::map_grad_kernel<", "::bwd_kernel(")
+MACRO_BLEND = ("macro_fwd_kernel", "macro_bwd_kernel", "sum_fine_tiles")
 
 
 def device_time(prof):
@@ -734,7 +934,7 @@ def device_time(prof):
             us = e.self_cuda_time_total
         kernels[e.key] = (us / 1000.0, e.count)
     busy = sum(ms for ms, _ in kernels.values())
-    classes = (("list_blend", LIST_BLEND),
+    classes = (("macro_blend", MACRO_BLEND), ("list_blend", LIST_BLEND),
                ("sort", ("sort", "radix", "Sort")),
                ("elementwise", ("elementwise",)),
                ("reduce", ("reduce",)),
@@ -754,6 +954,27 @@ def device_time(prof):
 
 
 # ------------------------------------------------------------ mapping path
+
+def count_syncs(torch, fn):
+    """Host syncs of ``fn()`` (torch.cuda sync debug mode warns at each,
+    with the Python line that caused it): (count, {file:line: count})."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    hits = [x for x in w
+            if str(x.message).startswith("called a synchronizing")]
+    sites = {}
+    for x in hits:
+        k = f"{Path(x.filename).name}:{x.lineno}"
+        sites[k] = sites.get(k, 0) + 1
+    return len(hits), sites
+
 
 def map_window(torch, scene, frames, poses, views=MAP_VIEWS,
                xyz_noise=MAP_XYZ_NOISE):
@@ -804,13 +1025,13 @@ def map_window(torch, scene, frames, poses, views=MAP_VIEWS,
 
 def window_l1(torch, m, cams, intr, cfg, monocular=True, alpha=0.95):
     """The window's mapping loss (mean over views of mapping_loss_rgb[d]
-    of a full render at the current poses and exposures). A check, not
-    the mapping path: its renders' launches are not counted."""
+    of a full render at the current poses and exposures, blended on
+    ``cfg.backend``). A check, not the mapping path: its renders' launches
+    are not counted."""
     from monogs_tpu_torch.ops import losses
-    from monogs_tpu_torch.render import blend_lists as bl
     from monogs_tpu_torch.render import render
 
-    counts = dict(bl.LAUNCHES)
+    counts = all_launches()
     tot = 0.0
     with torch.no_grad():
         for v in range(cams.T.shape[0]):
@@ -825,7 +1046,7 @@ def window_l1(torch, m, cams, intr, cfg, monocular=True, alpha=0.95):
                     out.image, out.depth, cams.gt_image[v], cams.gt_depth[v],
                     cams.mapping_mask[v], cams.ea[v], cams.eb[v], alpha)
             tot += float(loss)
-    bl.LAUNCHES.update(counts)
+    restore_launches(counts)
     return tot / cams.T.shape[0]
 
 
@@ -892,12 +1113,9 @@ def densify_check(torch, m, gen):
 def mapping_path(torch, intr, cfg, scene, frames, poses):
     """Drive the port's mapping on the card (see the module docstring);
     returns (metrics, launches)."""
-    import warnings
-
     from torch.profiler import ProfilerActivity, profile
 
     from monogs_tpu_torch.models import gaussian_map as gm
-    from monogs_tpu_torch.render import blend_lists as bl
     from monogs_tpu_torch.slam import mapping as mp
 
     dev = scene.xyz.device
@@ -909,18 +1127,19 @@ def mapping_path(torch, intr, cfg, scene, frames, poses):
 
     def run_map(n, it0, mcfg=mc, cams_=cams, init=False):
         torch.cuda.synchronize()
-        before = dict(bl.LAUNCHES)
+        before = all_launches()
         t0 = time.perf_counter()
         r = mp.map_iters(m0, cams_, n, it0, gen, intr, cfg, mcfg, hyper,
                          initialization=init)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        return secs, r, {k: bl.LAUNCHES[k] - before[k] for k in before}
+        now = all_launches()
+        return secs, r, {k: now[k] - before[k] for k in before}
 
     # first call: the allocator and library handles warm up
     run_map(1, 100)
     torch.cuda.reset_peak_memory_stats()
-    bl.reset_launches()
+    reset_launches()
     out = {}
 
     # 1. mono, tile_frac 0.25, from iteration 190: the 35-iteration run
@@ -993,43 +1212,30 @@ def mapping_path(torch, intr, cfg, scene, frames, poses):
 
     # 6. colour refinement, 20 iterations over the window's views
     torch.cuda.synchronize()
-    before = dict(bl.LAUNCHES)
+    before = all_launches()
     t0 = time.perf_counter()
     mr = mp.color_refinement_iters(mp_, cams, 20, gen, intr, cfg, mc, hyper)
     torch.cuda.synchronize()
     t_r = time.perf_counter() - t0
     check_finite_map(torch, mr, cams, "colour refinement")
-    check(bl.LAUNCHES["bwd"] - before["bwd"] == 20,
-          f"bwd launched {bl.LAUNCHES['bwd'] - before['bwd']} times in 20 "
-          f"refinement iterations")
+    n_bwd = all_launches()["bwd"] - before["bwd"]
+    check(n_bwd == 20,
+          f"bwd launched {n_bwd} times in 20 refinement iterations")
     out["color_refinement"] = dict(ms_per_iter=1000.0 * t_r / 20)
     torch.cuda.synchronize()
-    launches = dict(bl.LAUNCHES)
+    launches = all_launches()
     out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
     for name in MAP_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} was not launched on the mapping path")
 
-    # host syncs of a call (torch.cuda sync debug mode warns at each, with
-    # the Python line that caused it), for 1 and 3 iterations: the
-    # difference is per iteration
-    syncs, sites = {}, {}
-    for n in (1, 3):
-        with warnings.catch_warnings(record=True) as w:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                run_map(n, 100)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        hits = [x for x in w
-                if str(x.message).startswith("called a synchronizing")]
-        syncs[n] = len(hits)
-        for x in hits:
-            k = f"{Path(x.filename).name}:{x.lineno}"
-            sites[k] = sites.get(k, 0) + 1
-    out["host_syncs"] = dict(call_1=syncs[1], call_3=syncs[3],
-                             per_iter=(syncs[3] - syncs[1]) / 2, sites=sites)
+    # host syncs of a call for 1 and 3 iterations: the difference is per
+    # iteration
+    syncs = {n: count_syncs(torch, lambda n=n: run_map(n, 100))
+             for n in (1, 3)}
+    out["host_syncs"] = dict(call_1=syncs[1][0], call_3=syncs[3][0],
+                             per_iter=(syncs[3][0] - syncs[1][0]) / 2,
+                             sites=syncs[3][1])
 
     # one profiled BA iteration (tile_frac 0.25): a 3-iteration call less
     # a 1-iteration call, halved
@@ -1054,6 +1260,156 @@ def mapping_path(torch, intr, cfg, scene, frames, poses):
                                 - a["device_ms_by_class"][k]) / 2
                             for k in a["device_ms_by_class"]},
         top_3_iter_call=b["top"])
+    return out, launches
+
+
+# ---------------------------------------------------- macro-backend path
+
+def macro_path(torch, intr, cfg, scene, frames, poses):
+    """Drive the unfused mapping branch on the macro-list backends (the
+    module docstring's phase 5); returns (metrics, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monogs_tpu_torch.models import gaussian_map as gm
+    from monogs_tpu_torch.render import render
+    from monogs_tpu_torch.slam import mapping as mp
+
+    dev = scene.xyz.device
+    hyper = gm.MapHyper()
+    b = MAP_VIEWS
+    mc = mp.MapConfig(monocular=True, window_size=8, pose_window=5,
+                      bin_margin=0.0)
+    cfg_p = cfg._replace(backend="pallas")
+    cfg_c = cfg._replace(backend="pallas_compact")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m0, cams = map_window(torch, scene, frames, poses, views=b)
+
+    def run_map(n, cfg_, m_=m0, cams_=cams, mcfg=mc):
+        torch.cuda.synchronize()
+        before = all_launches()
+        t0 = time.perf_counter()
+        r = mp.map_iters(m_, cams_, n, 100, gen, intr, cfg_, mcfg, hyper)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        now = all_launches()
+        return secs, r, {k: now[k] - before[k] for k in now}
+
+    def ms_per_iter(cfg_, m_, cams_, mcfg=mc, n=MACRO_ITERS):
+        """(ms per iteration by the delta method, (t(n) - t(0)) / n, the
+        n-iteration result, its launches)."""
+        t_0, _, _ = run_map(0, cfg_, m_, cams_, mcfg)
+        t_n, r, n_l = run_map(n, cfg_, m_, cams_, mcfg)
+        return 1000.0 * (t_n - t_0) / n, r, n_l
+
+    # first call: the allocator and library handles warm up
+    run_map(1, cfg_p)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = {}
+
+    # 1. one frame on each backend (the compact blend at the XLA path's
+    # k_fine equals it up to the log-alpha's rounding; the masked walk
+    # has no k_fine cap)
+    with torch.no_grad():
+        img = {be: render(m0.render_view(), cams.T[1], intr, cfg._replace(
+            backend=be, with_n_touched=False)).image
+            for be in ("xla", "pallas_compact", "pallas")}
+    for be, x in img.items():
+        check(bool(torch.isfinite(x).all()) and float(x.max()) > 0,
+              f"render on {be}: non-finite or empty")
+    diff = torch.abs(img["pallas_compact"] - img["xla"])
+    out["render"] = dict(
+        compact_vs_xla_max=float(diff.max()),
+        compact_vs_xla_share_over_2e5=float((diff > 2e-5).float().mean()),
+        walk_vs_compact_mean=float(
+            torch.abs(img["pallas"] - img["pallas_compact"]).mean()))
+    check(out["render"]["compact_vs_xla_share_over_2e5"] < 1e-3
+          and out["render"]["compact_vs_xla_max"] < 1e-2,
+          f"pallas_compact and xla renders differ: {out['render']}")
+
+    # 2. BA on the masked walk, then on the compact blend from its result
+    l1_0 = window_l1(torch, m0, cams, intr, cfg_p)
+    ms_p, ra, n_a = ms_per_iter(cfg_p, m0, cams)
+    check_finite_map(torch, ra.m, ra.cams, "BA on pallas")
+    l1_a = window_l1(torch, ra.m, ra.cams, intr, cfg_p)
+    ms_c, rc, n_c = ms_per_iter(cfg_c, ra.m, ra.cams)
+    check_finite_map(torch, rc.m, rc.cams, "BA on pallas_compact")
+    l1_c = window_l1(torch, rc.m, rc.cams, intr, cfg_c)
+    want = MACRO_ITERS * b
+    for name, n_l, keys in (("pallas", n_a, ("macro_fwd", "macro_bwd")),
+                            ("pallas_compact", n_c,
+                             ("compact_fwd", "compact_bwd"))):
+        check(all(n_l[k] == want for k in keys)
+              and sum(n_l.values()) == 2 * want,
+              f"BA on {name}: launches {n_l}, want {want} of each of {keys}")
+    check(l1_a < l1_0, f"BA on pallas: L1 {l1_a:.6f} not below {l1_0:.6f}")
+    check(l1_c < MAP_L1_RATIO * l1_0,
+          f"BA on pallas then pallas_compact: L1 {l1_c:.6f} after "
+          f"{2 * MACRO_ITERS} iterations is not below {MAP_L1_RATIO} x "
+          f"{l1_0:.6f}")
+    out["ba_pallas"] = dict(ms_per_iter=ms_p, l1_before=l1_0, l1_after=l1_a)
+    out["ba_pallas_compact"] = dict(ms_per_iter=ms_c, l1_before=l1_a,
+                                    l1_after=l1_c)
+
+    # 3. RGB-D on the masked walk
+    mc_d = mc._replace(monocular=False)
+    l1d_0 = window_l1(torch, m0, cams, intr, cfg_p, monocular=False)
+    t_d, rd, n_d = run_map(5, cfg_p, mcfg=mc_d)
+    check_finite_map(torch, rd.m, rd.cams, "RGB-D BA on pallas")
+    check(n_d["macro_fwd"] == 5 * b and n_d["macro_bwd"] == 5 * b,
+          f"RGB-D BA launches {n_d}")
+    l1d = window_l1(torch, rd.m, rd.cams, intr, cfg_p, monocular=False)
+    check(l1d < l1d_0, f"RGB-D BA: L1 {l1d:.6f} not below {l1d_0:.6f}")
+    out["ba_pallas_rgbd"] = dict(s_5=t_d, l1_before=l1d_0, l1_after=l1d)
+
+    # 4. colour refinement without lists
+    torch.cuda.synchronize()
+    before = all_launches()
+    t0 = time.perf_counter()
+    mr = mp.color_refinement_iters(rc.m, cams, MACRO_ITERS, gen, intr, cfg_p,
+                                   mc, hyper)
+    torch.cuda.synchronize()
+    t_r = time.perf_counter() - t0
+    check_finite_map(torch, mr, cams, "refinement on pallas")
+    now = all_launches()
+    n_r = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    check(n_r == {"macro_fwd": MACRO_ITERS, "macro_bwd": MACRO_ITERS},
+          f"refinement launches {n_r}")
+    out["color_refinement"] = dict(ms_per_iter=1000.0 * t_r / MACRO_ITERS)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+
+    # 5. host syncs of a 1- and a 3-iteration call, and one profiled
+    # iteration (a 3-iteration call less a 1-iteration call, halved)
+    syncs = {n: count_syncs(torch, lambda n=n: run_map(n, cfg_p))
+             for n in (1, 3)}
+    out["host_syncs"] = dict(per_iter=(syncs[3][0] - syncs[1][0]) / 2,
+                             call_1=syncs[1][0], sites=syncs[3][1])
+    prof_ = {}
+    for n in (1, 3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run_map(n, cfg_p)
+            wall = 1000.0 * (time.perf_counter() - t0)
+        prof_[n] = dict(wall_ms=wall, **device_time(prof))
+    p1, p3 = prof_[1], prof_[3]
+    busy = (p3["device_busy_ms"] - p1["device_busy_ms"]) / 2
+    wall = (p3["wall_ms"] - p1["wall_ms"]) / 2
+    out["profile_iteration"] = dict(
+        wall_ms=wall, device_busy_ms=busy if busy > 0 else "not measured",
+        device_idle_share=max(0.0, 1.0 - busy / wall) if busy > 0
+        else "not measured",
+        kernel_launches=(p3["kernel_launches"] - p1["kernel_launches"]) / 2,
+        device_ms_by_class={k: (p3["device_ms_by_class"][k]
+                                - p1["device_ms_by_class"][k]) / 2
+                            for k in p1["device_ms_by_class"]},
+        top_3_iter_call=p3["top"])
+    torch.cuda.synchronize()
+    launches = all_launches()
+    for name in MACRO_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the macro-backend path")
     return out, launches
 
 
@@ -1085,25 +1441,43 @@ def run(scene_seed):
                           with_depth=True)[0][0]
     e_exp, sass = expf_ops()
     log(f"expf: {e_exp} float32 operations (SASS difference {sass})")
-    entries = kernel_phase(torch, intr, cfg, tcfg, scene, poses[1], frame,
-                           e_exp)
-    entries.update(mapping_kernel_phase(torch, intr, cfg, scene, poses[1],
-                                        frame, e_exp))
-    summary, frames, chain_poses = main_path(torch, intr, cfg, tcfg, scene,
-                                             poses_fn)
-    mapping, map_launches = mapping_path(torch, intr, cfg, scene, frames,
-                                         chain_poses)
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(torch, *args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"phase {name}: {phase_s[name]:.1f} s")
+        return out
+
+    entries = timed("kernels_lists", kernel_phase, intr, cfg, tcfg, scene,
+                    poses[1], frame, e_exp)
+    entries.update(timed("kernels_mapping", mapping_kernel_phase, intr, cfg,
+                         scene, poses[1], frame, e_exp))
+    entries.update(timed("kernels_macro", macro_kernel_phase, intr, cfg,
+                         scene, poses[1], poses[2], frame, e_exp))
+    summary, frames, chain_poses = timed("tracking_path", main_path, intr,
+                                         cfg, tcfg, scene, poses_fn)
+    mapping, map_launches = timed("mapping_path", mapping_path, intr, cfg,
+                                  scene, frames, chain_poses)
+    macro, macro_launches = timed("macro_path", macro_path, intr, cfg, scene,
+                                  frames, chain_poses)
     for name, e in entries.items():
         kind = name.split("@")[0]
         e["launches"] = (summary["launches"][kind] if kind in TRACK_KERNELS
+                         else macro_launches[kind] if kind in MACRO_KERNELS
                          else map_launches[kind])
     summary["build_s"] = build_s
+    summary["phase_s"] = phase_s
     summary["scene_seed"] = scene_seed
     summary["device"] = smi
     mapping["launches"] = map_launches
     mapping["device"] = smi
+    macro["launches"] = macro_launches
+    macro["device"] = smi
     print(json.dumps({"main_path": summary}), flush=True)
     print(json.dumps({"mapping_path": mapping}), flush=True)
+    print(json.dumps({"macro_path": macro}), flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

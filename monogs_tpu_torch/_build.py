@@ -3,9 +3,11 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, under ``build/`` at the root of the
 checkout, and loaded with ``ctypes``. A library is named after the hash of
-its source and flags, so an edit rebuilds it and an unchanged source is
-reused. Nothing here runs at import time: the CPU-only tests import every
-module of the package without a compiler or a card.
+its source, the headers under ``csrc/`` (``*.cuh``, which the sources
+include) and the flags, so an edit to any of them rebuilds it and an
+unchanged library is reused. Nothing here runs at import time: the
+CPU-only tests import every module of the package without a compiler or a
+card.
 """
 
 from __future__ import annotations
@@ -20,12 +22,14 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build"
-SOURCES = {"blend_lists": _PKG / "csrc" / "blend_lists.cu"}
+_CSRC = _PKG / "csrc"
+SOURCES = {"blend_lists": _CSRC / "blend_lists.cu",
+           "blend_macros": _CSRC / "blend_macros.cu"}
 
 # -fmad=false: s, alpha and the transmittance round exactly as the plain
 # PyTorch version's separate elementwise ops do, so the 1/255 and 1e-4
-# threshold decisions agree with it (scripts/port_fmad_check.py times the
-# kernels without it). No --use_fast_math: __expf would move those
+# threshold decisions agree with it (scripts/port_kernel_ab.py --no-fmad
+# times the kernels without it). No --use_fast_math: __expf would move those
 # decisions too.
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,9 +54,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{h}.so"
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build_all() -> dict[str, Path]:
@@ -89,7 +95,20 @@ _SIGNATURES = {
         "blend_map_grad": [_VP] * 10 + [_I] * 6 + [_F] * 3 + [_VP],
         "blend_bwd": [_VP] * 6 + [_I] * 5 + [_VP],
     },
+    "blend_macros": {
+        "macro_fwd": [_VP] * 5 + [_I] * 8 + [_VP],
+        "macro_bwd": [_VP] * 7 + [_I] * 8 + [_VP],
+    },
 }
+
+
+def load(path: Path, name: str) -> ctypes.CDLL:
+    """Load a built library with the C interface of source ``name``."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -101,9 +120,5 @@ def library(name: str) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(path))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            _LIBS[name] = lib
+            lib = _LIBS[name] = load(path, name)
     return lib

@@ -1,0 +1,454 @@
+// Device machinery shared by the blend kernels (blend_lists.cu,
+// blend_macros.cu): row evaluation, row staging, the forward walk with its
+// exact early exit, the checkpointed forward and the reverse blend.
+//
+// A CTA blends one 16x16 tile with one thread per pixel. Its rows come from
+// a row source, a compile-time choice so that the list kernels carry no
+// index: the tile's own depth-ordered list (OwnRows, row k is dt[k]), or
+// rows picked from a macro list by an index list in shared memory
+// (IndexedRows, row k is dt[ridx[k]]). Row cotangents go to the same row of
+// the output (dd_t[k], or dd_t[ridx[k]]).
+//
+// Packed row layout (renderer._F columns): u, v, conic a/b/c, opacity, rgb,
+// z, radius, log-opacity, pad. Invalid rows carry LOGO = -1e30 and never
+// pass the alpha test.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int F = 16;
+constexpr int CU = 0, CV = 1, CA = 2, CB = 3, CC = 4, R0 = 6, G0 = 7, B0 = 8,
+              CZ = 9, RAD = 10, LOGO = 11;
+constexpr int KC = 32;       // rows staged in shared memory per step
+constexpr float T_EPS = 1e-4f;
+constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
+
+struct RowEval {
+  float dx, dy, alpha;
+  bool ok;
+};
+
+// Log-alpha of one row at one pixel, alpha and the alpha test, in the op
+// order of the plain version (blend_lists._forward_plain).
+__device__ __forceinline__ RowEval eval_row(const float* r, float x0, float y0,
+                                            float pxl, float pyl,
+                                            bool pix_ok) {
+  RowEval e;
+  const float ul = r[CU] - x0;
+  const float vl = r[CV] - y0;
+  e.dx = ul - pxl;
+  e.dy = vl - pyl;
+  const float s = -0.5f * (r[CA] * e.dx * e.dx + r[CC] * e.dy * e.dy) -
+                  r[CB] * e.dx * e.dy + r[LOGO];
+  const float alpha = fminf(0.99f, expf(fminf(s, 2.0f)));
+  e.ok = pix_ok && (s <= r[LOGO] + 1e-4f) && (alpha >= ALPHA_MIN);
+  e.alpha = e.ok ? alpha : 0.0f;
+  return e;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ void stage_span(float* dst, const float* src,
+                                           int n_floats) {
+  for (int i = threadIdx.x; i < n_floats; i += blockDim.x) dst[i] = src[i];
+}
+
+__device__ __forceinline__ void store8(float* out, const float* v5) {
+  float4* o = reinterpret_cast<float4*>(out);
+  o[0] = make_float4(v5[0], v5[1], v5[2], v5[3]);
+  o[1] = make_float4(v5[4], 0.f, 0.f, 0.f);
+}
+
+// kStopEarly: the checkpointed forward stops staging chunks once every pixel
+// of the CTA has terminated. That pays on a macro list (up to Km rows); on a
+// tile list of a few chunks the per-chunk barrier costs more than it saves
+// (the RGB-D mapping step at Kf 256 ran 12 % slower with it on an H100,
+// scripts/port_kernel_ab.py).
+struct OwnRows {
+  static constexpr bool kContiguous = true;
+  static constexpr bool kStopEarly = false;
+  const float* dt;
+  __device__ __forceinline__ int operator()(int k) const { return k; }
+};
+
+struct IndexedRows {
+  static constexpr bool kContiguous = false;
+  static constexpr bool kStopEarly = true;
+  const float* dt;
+  const int* ridx;  // shared memory
+  __device__ __forceinline__ int operator()(int k) const { return ridx[k]; }
+};
+
+template <class Rows>
+struct Tile {
+  int t, p, lane, warp, nw, P;
+  float x0, y0, pxl, pyl;
+  float pm[6];
+  bool pix_ok;
+  Rows src;
+};
+
+template <class Rows>
+__device__ __forceinline__ Tile<Rows> make_tile(int t, float x0, float y0,
+                                                const float* pmat, Rows src,
+                                                int width, int height) {
+  Tile<Rows> c;
+  c.P = blockDim.x;
+  c.nw = c.P >> 5;
+  c.t = t;
+  c.p = threadIdx.x;
+  c.lane = c.p & 31;
+  c.warp = c.p >> 5;
+  c.x0 = x0;
+  c.y0 = y0;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) c.pm[j] = pmat[j * c.P + c.p];
+  c.pxl = c.pm[3];
+  c.pyl = c.pm[4];
+  c.pix_ok = (c.x0 + c.pxl <= (float)(width - 1)) &&
+             (c.y0 + c.pyl <= (float)(height - 1));
+  c.src = src;
+  return c;
+}
+
+// The tile of a list kernel: CTA t blends its own rows d[t] [kf][F].
+__device__ __forceinline__ Tile<OwnRows> load_tile(const float* d,
+                                                   const float* tx0,
+                                                   const float* ty0,
+                                                   const float* pmat, int kf,
+                                                   int width, int height) {
+  const int t = blockIdx.x;
+  return make_tile(t, tx0[t], ty0[t], pmat, OwnRows{d + (size_t)t * kf * F},
+                   width, height);
+}
+
+// Stage rows k0 .. k0 + n - 1 of the tile's row source into dst [n][F].
+template <class Rows>
+__device__ __forceinline__ void stage_rows(float* dst, const Tile<Rows>& c,
+                                           int k0, int n) {
+  if constexpr (Rows::kContiguous) {
+    stage_span(dst, c.src.dt + (size_t)k0 * F, n * F);
+  } else {
+    for (int i = threadIdx.x; i < n * F; i += blockDim.x)
+      dst[i] = c.src.dt[(size_t)c.src(k0 + i / F) * F + i % F];
+  }
+}
+
+__host__ __device__ constexpr int n_chunks(int kf) {
+  return (kf + KC - 1) / KC;
+}
+
+// ---------------------------------------------------------- forward walk --
+// Front-to-back blend of the tile's kf rows into o[5] (r, g, b, depth,
+// acc), with the exact per-pixel early exit (T is non-increasing, so once
+// T (1 - a) < 1e-4 no later row contributes) and a CTA exit once every
+// pixel has exited; pixels beyond the image edge never walk. COUNTS: each
+// row's contributing-pixel count into cnts_t[kf] from a warp ballot and
+// popcount, summed over the warps in shared memory (wcnt [KC][nw]).
+// Every thread of the CTA must call it: it stages rows between barriers.
+template <bool COUNTS, class Rows>
+__device__ __forceinline__ void forward_walk(const Tile<Rows>& c, float* rows,
+                                             int* wcnt, int kf, float o[5],
+                                             float* cnts_t) {
+  float T = 1.0f;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) o[j] = 0.f;
+  bool done = !c.pix_ok;
+  for (int k0 = 0; k0 < kf; k0 += KC) {
+    const int n = min(KC, kf - k0);
+    __syncthreads();
+    stage_rows(rows, c, k0, n);
+    __syncthreads();
+    for (int i = 0; i < n; ++i) {
+      const float* r = rows + i * F;
+      bool contrib = false;
+      if (!done) {
+        const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
+        if (e.ok) {
+          const float test = T * (1.0f - e.alpha);
+          if (test < T_EPS) {
+            done = true;
+          } else {
+            const float w = e.alpha * T;
+            o[0] += w * r[R0];
+            o[1] += w * r[G0];
+            o[2] += w * r[B0];
+            o[3] += w * r[CZ];
+            o[4] += w;
+            T = test;
+            contrib = true;
+          }
+        }
+      }
+      if constexpr (COUNTS) {
+        const unsigned b = __ballot_sync(0xffffffffu, contrib);
+        if (c.lane == 0) wcnt[i * c.nw + c.warp] = __popc(b);
+      }
+    }
+    const bool all_done = __syncthreads_and(done);
+    if constexpr (COUNTS) {
+      for (int i = c.p; i < n; i += c.P) {
+        int s = 0;
+        for (int w = 0; w < c.nw; ++w) s += wcnt[i * c.nw + w];
+        cnts_t[k0 + i] = (float)s;
+      }
+      if (all_done) {
+        for (int k = k0 + n + c.p; k < kf; k += c.P) cnts_t[k] = 0.f;
+      }
+    }
+    if (all_done) break;
+  }
+}
+
+// ------------------------------------------------------- reverse machinery --
+// Shared by the kernels that pull output cotangents back to the rows (fused
+// first-order step, fused mapping step, blend VJPs): a forward pass that
+// stores the transmittance at each KC-row chunk entry, then a back-to-front
+// pass per chunk that recomputes the chunk's per-row T_excl from its
+// checkpoint, carries the suffix sum(wbar * w) and reduces each row's six
+// conic moments and its feature sums deterministically (warp shuffles, then
+// a fixed-order sum over the warps in shared memory). No atomics: each CTA
+// owns the rows it writes.
+//
+// Shared memory (floats): rows [KC][F] | ck [nch][P] | tex [KC][P] |
+// red [KC][nw][NV] per-warp row sums | bsum [nw][8] per-warp tile sums.
+
+// Forward blend of the tile's rows into o[5] (r, g, b, depth, acc),
+// storing the transmittance at each chunk entry in ck; returns the index of
+// the row at which the pixel terminates (kf if it never does, 0 for a pixel
+// beyond the image edge). With Rows::kStopEarly, chunks stop once every
+// pixel has terminated. n_live receives the number of chunks walked, beyond
+// which every row's cotangent is 0. Every thread of the CTA must call it.
+template <class Rows>
+__device__ __forceinline__ int forward_checkpointed(const Tile<Rows>& c,
+                                                    float* rows, float* ck,
+                                                    int kf, float o[5],
+                                                    int& n_live) {
+  float T = 1.0f;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) o[j] = 0.f;
+  int kend = c.pix_ok ? kf : 0;
+  n_live = n_chunks(kf);
+  for (int ch = 0; ch < n_chunks(kf); ++ch) {
+    const int k0 = ch * KC;
+    const int n = min(KC, kf - k0);
+    ck[ch * c.P + c.p] = T;
+    __syncthreads();
+    stage_rows(rows, c, k0, n);
+    __syncthreads();
+    if (kend == kf) {
+      for (int i = 0; i < n; ++i) {
+        const float* r = rows + i * F;
+        const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
+        if (!e.ok) continue;
+        const float test = T * (1.0f - e.alpha);
+        if (test < T_EPS) {
+          kend = k0 + i;
+          break;
+        }
+        const float w = e.alpha * T;
+        o[0] += w * r[R0];
+        o[1] += w * r[G0];
+        o[2] += w * r[B0];
+        o[3] += w * r[CZ];
+        o[4] += w;
+        T = test;
+      }
+    }
+    if constexpr (Rows::kStopEarly) {
+      if (__syncthreads_and(kend < kf)) {
+        n_live = ch + 1;
+        break;
+      }
+    }
+  }
+  return kend;
+}
+
+// sums[t][0..7] = the CTA's sums of part[0..NS-1] (zero beyond NS).
+template <int NS, class Rows>
+__device__ __forceinline__ void tile_sums(const Tile<Rows>& c,
+                                          const float* part, float* bsum,
+                                          float* sums) {
+  static_assert(NS <= 8, "at most 8 per-tile sums");
+  // every lane holds the warp's sum after the butterfly and stores it to
+  // the same address: a lane-0 guard here lets the compiler unswitch the
+  // surrounding code on the lane, and the shuffles then run diverged
+#pragma unroll
+  for (int j = 0; j < NS; ++j) bsum[c.warp * 8 + j] = warp_sum(part[j]);
+  __syncthreads();
+  if (c.p < 8) {
+    float v = 0.f;
+    if (c.p < NS)
+      for (int w = 0; w < c.nw; ++w) v += bsum[w * 8 + c.p];
+    sums[(size_t)c.t * 8 + c.p] = v;
+  }
+}
+
+// Row cotangent of the packed columns from the row's reduced conic moments
+// G[0..5] (sums of sbar * (px^2, px py, py^2, px, py, 1)) and its feature
+// sums; writes the 16 columns of one row.
+__device__ __forceinline__ void write_row(float* dst, const float* r,
+                                          float x0, float y0, const float* G,
+                                          float gr, float gg, float gb,
+                                          float gz) {
+  const float a = r[CA], b = r[CB], cc = r[CC];
+  const float ul = r[CU] - x0, vl = r[CV] - y0;
+  float out[F];
+#pragma unroll
+  for (int j = 0; j < F; ++j) out[j] = 0.f;
+  out[CU] = a * G[3] + b * G[4] - (a * ul + b * vl) * G[5];
+  out[CV] = b * G[3] + cc * G[4] - (b * ul + cc * vl) * G[5];
+  out[CA] = -0.5f * G[0] + ul * G[3] - 0.5f * ul * ul * G[5];
+  out[CB] = -G[1] + vl * G[3] + ul * G[4] - ul * vl * G[5];
+  out[CC] = -0.5f * G[2] + vl * G[4] - 0.5f * vl * vl * G[5];
+  out[LOGO] = G[5];
+  out[R0] = gr;
+  out[G0] = gg;
+  out[B0] = gb;
+  out[CZ] = gz;
+  float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    d4[j] = make_float4(out[4 * j], out[4 * j + 1], out[4 * j + 2],
+                        out[4 * j + 3]);
+}
+
+__device__ __forceinline__ void zero_row(float* dst) {
+  float4* d4 = reinterpret_cast<float4*>(dst);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) d4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Values each pixel reduces per row: six conic moments and the r, g, b
+// feature sums, the depth feature sum when DEP, and for DEPCHAIN a second,
+// depth-only chain (six moments and its depth sum).
+template <bool DEP, bool DEPCHAIN>
+struct RevSpec {
+  static constexpr int NV0 = DEP ? 10 : 9;
+  static constexpr int NV = NV0 + (DEPCHAIN ? 7 : 0);
+};
+
+// Reverse blend, back to front, chunk by chunk from the checkpoints of
+// forward_checkpointed (kend, n_live its results). g[5]: this pixel's output
+// cotangent (r, g, b, depth, acc); the depth entry is read only when DEP.
+// gd: the depth-only second chain's cotangent when DEPCHAIN. Writes the
+// cotangent of row k to dd_t (and ddd_t) at row c.src(k); rows of the
+// chunks beyond n_live get zeros.
+template <bool DEP, bool DEPCHAIN, class Rows>
+__device__ __forceinline__ void reverse_blend(const Tile<Rows>& c, float* rows,
+                                              const float* ck, float* tex,
+                                              float* red, int kf, int kend,
+                                              int n_live, const float g[5],
+                                              float gd, float* dd_t,
+                                              float* ddd_t) {
+  using S_ = RevSpec<DEP, DEPCHAIN>;
+  constexpr int NV0 = S_::NV0, NV = S_::NV;
+  for (int k = n_live * KC + c.p; k < kf; k += c.P) {
+    const size_t row = (size_t)c.src(k) * F;
+    zero_row(dd_t + row);
+    if constexpr (DEPCHAIN) zero_row(ddd_t + row);
+  }
+  float S = 0.f, Sd = 0.f;  // suffix sums of wbar * w (each chain)
+  for (int ch = n_live - 1; ch >= 0; --ch) {
+    const int k0 = ch * KC;
+    const int n = min(KC, kf - k0);
+    __syncthreads();
+    stage_rows(rows, c, k0, n);
+    __syncthreads();
+    float Tc = ck[ch * c.P + c.p];
+    for (int i = 0; i < n; ++i) {
+      tex[i * c.P + c.p] = Tc;
+      if (k0 + i < kend) {
+        const RowEval e =
+            eval_row(rows + i * F, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
+        Tc *= (1.0f - e.alpha);
+      }
+    }
+    for (int i = n - 1; i >= 0; --i) {
+      const float* r = rows + i * F;
+      const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
+      const bool contrib = e.ok && (k0 + i < kend);
+      const float tx = tex[i * c.P + c.p];
+      const float om = 1.0f - e.alpha;
+      const float w = contrib ? e.alpha * tx : 0.0f;
+      const bool live = e.ok && (e.alpha < 0.99f);
+      float v[NV];
+      {
+        float wbar = r[R0] * g[0] + r[G0] * g[1] + r[B0] * g[2];
+        if constexpr (DEP) wbar += r[CZ] * g[3];
+        wbar += g[4];
+        const float obar = S / om;
+        const float abar = (contrib ? tx * wbar : 0.0f) - obar;
+        S += wbar * w;
+        const float sbar = live ? e.alpha * abar : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 6; ++j) v[j] = sbar * c.pm[j];
+        v[6] = w * g[0];
+        v[7] = w * g[1];
+        v[8] = w * g[2];
+        if constexpr (DEP) v[9] = w * g[3];
+      }
+      if constexpr (DEPCHAIN) {
+        const float wbar = r[CZ] * gd;
+        const float obar = Sd / om;
+        const float abar = (contrib ? tx * wbar : 0.0f) - obar;
+        Sd += wbar * w;
+        const float sbar = live ? e.alpha * abar : 0.0f;
+#pragma unroll
+        for (int j = 0; j < 6; ++j) v[NV0 + j] = sbar * c.pm[j];
+        v[NV0 + 6] = w * gd;
+      }
+      // stored by every lane, unguarded (see tile_sums)
+#pragma unroll
+      for (int j = 0; j < NV; ++j)
+        red[(i * c.nw + c.warp) * NV + j] = warp_sum(v[j]);
+    }
+    __syncthreads();
+    for (int i = c.p; i < n; i += c.P) {
+      const float* r = rows + i * F;
+      float tot[NV];
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        float s = 0.f;
+        for (int w = 0; w < c.nw; ++w) s += red[(i * c.nw + w) * NV + j];
+        tot[j] = s;
+      }
+      const size_t row = (size_t)c.src(k0 + i) * F;
+      write_row(dd_t + row, r, c.x0, c.y0, tot, tot[6], tot[7], tot[8],
+                DEP ? tot[NV0 - 1] : 0.0f);
+      if constexpr (DEPCHAIN)
+        write_row(ddd_t + row, r, c.x0, c.y0, tot + NV0, 0.f, 0.f, 0.f,
+                  tot[NV0 + 6]);
+    }
+  }
+}
+
+// Shared memory of the reverse machinery, in bytes.
+size_t reverse_smem(int kf, int p, int nv) {
+  const int nw = p / 32;
+  return (size_t)(KC * F + n_chunks(kf) * p + KC * p + KC * nw * nv +
+                  nw * 8) *
+         sizeof(float);
+}
+
+// Dynamic shared memory above 48 KB needs the kernel's opt-in, which fails
+// above the card's limit per CTA; the error is then returned and cleared,
+// so that it does not surface at a later launch.
+template <typename K>
+cudaError_t launch_prepare(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) cudaGetLastError();
+  return rc;
+}
+
+}  // namespace

@@ -1,0 +1,36 @@
+"""Blocked scans of the XLA blend.
+
+Counterpart of ``monogs_tpu/ops/scan.py``'s ``blocked_cumprod_excl``, the
+transmittance scan of the XLA render path (``renderer._blend``). The
+two-level association (a running product inside blocks of ``block``, then
+the blocks' exclusive products) is kept, so that the port rounds the
+transmittance as the JAX package does; ``torch.cumprod`` would associate
+it as one sequential chain.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def blocked_cumprod_excl(x, axis: int = 0, block: int = 16):
+    """(exclusive, inclusive) cumprod of ``x`` along ``axis``, whose length
+    must be a multiple of ``block``. x: positive values (e.g. 1 - alpha)."""
+    x = torch.movedim(x, axis, 0)
+    k = x.shape[0]
+    if k % block:
+        raise ValueError(f"axis length {k} is not a multiple of {block}")
+    nb = k // block
+    xb = x.reshape((nb, block) + x.shape[1:])
+    parts = [xb[:, 0]]
+    for i in range(1, block):
+        parts.append(parts[-1] * xb[:, i])
+    within = torch.stack(parts, dim=1)               # [nb, block, ...]
+    totals = within[:, -1]
+    offs = [torch.ones_like(totals[0])]
+    for i in range(1, nb):
+        offs.append(offs[-1] * totals[i - 1])
+    offsets = torch.stack(offs, dim=0)               # [nb, ...]
+    incl = (within * offsets[:, None]).reshape((k,) + x.shape[1:])
+    excl = torch.cat([torch.ones_like(incl[:1]), incl[:-1]], dim=0)
+    return torch.movedim(excl, 0, axis), torch.movedim(incl, 0, axis)

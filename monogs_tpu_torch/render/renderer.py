@@ -1,36 +1,50 @@
-"""The tiled Gaussian-splat renderer over frozen per-tile lists.
+"""The tiled Gaussian-splat renderer.
 
-Counterpart of ``monogs_tpu/render/renderer.py`` for the tracking and
-mapping slices: the binning half (``_make_lists``, ``build_tile_lists``,
-``refine_fine_lists``, ``tile_images``) and the list-blend render surface
-(``render``, differentiable without n_touched; ``tile_rows``,
+Counterpart of ``monogs_tpu/render/renderer.py``: the binning half
+(``_make_lists``, ``build_tile_lists``, ``refine_fine_lists``,
+``tile_images``) and the render surface (``render``; ``tile_rows``,
 ``render_fo_grad_tiles``, ``render_pose_jvp_tiles``, ``render_map_grad``,
-``map_grad_from_rows``). Every blend goes through the kernels of
-``blend_lists``; binning is plain PyTorch sorts, as the JAX package left it
-to XLA.
+``map_grad_from_rows`` over the list kernels; ``render_golden``, the
+sequential test model). Binning is plain PyTorch sorts, as the JAX package
+left it to XLA.
+
+``render`` blends as the JAX package does for each ``RenderConfig.backend``:
+
+- ``"pallas_lists"``: the list kernels of ``blend_lists`` over the per-tile
+  lists (the counts kernel with ``with_n_touched``);
+- ``"pallas"`` / ``"pallas_compact"`` without frozen lists and without
+  ``with_n_touched``: the macro-list kernels of ``blend_macros`` (every
+  overlapping row, no ``k_fine`` cap / the first ``k_fine``), over
+  ``packed[order][sel_m]`` of the binning's macro stage;
+- otherwise, ``"xla"`` always: the XLA blend, plain PyTorch as the JAX
+  package's is XLA code (``_blend``: a [K, 6] x [6, P] log-alpha product per
+  tile, the blocked transmittance scan of ``ops/scan.py``), over chunks of
+  ``macro_chunk`` macro tiles under ``torch.utils.checkpoint``; its
+  ``n_touched`` counts come from the blend's contributing mask.
 
 Binning is not differentiable and runs under ``torch.no_grad``. Indices are
 int64 (PyTorch's index type); every sort key stays in the int32 value range
 of the JAX package, which ``_make_lists`` asserts.
-
-Only ``backend="pallas_lists"`` is ported: the XLA ``_blend`` path and the
-``pallas``/``pallas_compact`` macro backends arrive with the slice of the
-alternative render backends and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import math
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import se3
+from ..ops.scan import blocked_cumprod_excl
 from .blend_lists import (  # noqa: F401  (the packed row layout)
-    _CA, _CB, _CC, _F, _LOGO, _OPA, _R0, _G0, _B0, _RAD, _U, _V, _Z,
-    blend_lists_counts, blend_lists_fn, blend_lists_jvp8, fo_grad_lists,
-    map_grad_lists, map_grad_weights,
+    _ALPHA_MIN, _CA, _CB, _CC, _F, _LOGO, _OPA, _R0, _G0, _B0, _RAD, _T_EPS,
+    _U, _V, _Z, blend_lists_counts, blend_lists_fn, blend_lists_jvp8,
+    fo_grad_lists, map_grad_lists, map_grad_weights,
 )
+from .blend_macros import blend_macros_fn
 from .camera import Intrinsics
 from .primitives import preprocess
 from .tiling import macro_instance_bin
@@ -54,10 +68,12 @@ class RenderConfig(NamedTuple):
     k_fine: int = 512
     sh_degree: int = 0
     near: float = 0.2
-    macro_chunk: int = 0          # XLA-path knob; unused by the list blend
+    macro_chunk: int = 0          # XLA blend: tiles of this many macros per
+    #                               checkpointed chunk (0: all at once)
     with_n_touched: bool = True
     fine_mode: str = "sort"       # legacy knob, ignored
-    backend: str = "xla"          # only "pallas_lists" is ported
+    backend: str = "xla"          # "xla" | "pallas" | "pallas_compact" |
+    #                               "pallas_lists" (see the module docstring)
     pallas_interpret: bool = False  # TPU interpreter knob; unused here
     span_cap: int = 16
     k_big: int = 128
@@ -96,12 +112,13 @@ class _BinAux(NamedTuple):
     n_overflow: torch.Tensor  # splats whose strict span overflowed span_cap
 
 
+BACKENDS = ("xla", "pallas", "pallas_compact", "pallas_lists")
+
+
 def _check_backend(cfg: RenderConfig):
-    if cfg.backend != "pallas_lists":
-        raise NotImplementedError(
-            f"backend={cfg.backend!r}: only the list blend ('pallas_lists') "
-            "is ported; the XLA blend and the 'pallas'/'pallas_compact' "
-            "macro backends arrive with the alternative-backends slice")
+    if cfg.backend not in BACKENDS:
+        raise ValueError(f"backend={cfg.backend!r}: expected one of "
+                         f"{BACKENDS}")
 
 
 def _pack(prep):
@@ -307,13 +324,12 @@ def _assemble(x, intr: Intrinsics, cfg: RenderConfig):
     return x.permute(2, 0, 1)
 
 
-def frame_rows(gauss: GaussianArrays, T_cw, intr: Intrinsics,
-               cfg: RenderConfig, tau=None, scale_modifier: float = 1.0,
-               lists: Optional[TileLists] = None, means2d_offset=None):
-    """What the full-frame blend consumes: (d [Tf, Kf, F] packed rows with
-    validity folded in, vld_f [Tf, Kf], lists, prep). Without ``lists`` the
-    scene is binned at this pose first. Differentiable in the map, ``tau``
-    and ``means2d_offset`` (the gather's transpose is autograd's)."""
+def _project(gauss: GaussianArrays, T_cw, intr: Intrinsics, cfg: RenderConfig,
+             tau=None, scale_modifier: float = 1.0,
+             lists: Optional[TileLists] = None, means2d_offset=None):
+    """preprocess and pack the map at the pose (retracted by ``tau``);
+    without ``lists`` the scene is binned first. Returns (prep, packed
+    [N, F], lists, the binning's _BinAux or None)."""
     T_eff = se3.retract(T_cw, tau) if tau is not None else T_cw
     prep = preprocess(gauss.xyz, gauss.log_scale, gauss.quat,
                       gauss.opa_logit, gauss.sh, gauss.active, T_eff, intr,
@@ -321,53 +337,173 @@ def frame_rows(gauss: GaussianArrays, T_cw, intr: Intrinsics,
                       scale_modifier=scale_modifier,
                       means2d_offset=means2d_offset)
     packed = _pack(prep)
+    aux = None
     if lists is None:
-        lists, _ = _make_lists(packed[:, _U], packed[:, _V], packed[:, _RAD],
-                               prep.valid, prep.z, intr, cfg)
+        lists, aux = _make_lists(packed[:, _U], packed[:, _V],
+                                 packed[:, _RAD], prep.valid, prep.z, intr,
+                                 cfg)
+    return prep, packed, lists, aux
+
+
+def frame_rows(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+               cfg: RenderConfig, tau=None, scale_modifier: float = 1.0,
+               lists: Optional[TileLists] = None, means2d_offset=None):
+    """What the full-frame list blend consumes: (d [Tf, Kf, F] packed rows
+    with validity folded in, vld_f [Tf, Kf], lists, prep). Without
+    ``lists`` the scene is binned at this pose first. Differentiable in the
+    map, ``tau`` and ``means2d_offset`` (the gather's transpose is
+    autograd's)."""
+    prep, packed, lists, _ = _project(gauss, T_cw, intr, cfg, tau,
+                                      scale_modifier, lists, means2d_offset)
     # entries culled at the CURRENT pose must not blend even if the (possibly
     # stale) lists still carry them
     vld_f = lists.vld & prep.valid[lists.idx]
     return _masked_rows(packed[lists.idx], vld_f), vld_f, lists, prep
 
 
+def macro_rows(packed, aux: _BinAux):
+    """What the macro-list kernels consume, from the binning's macro stage:
+    (data_m [Tm, Km, F] = packed[order][sel_m], xy0 [Tm, 2] macro origins,
+    counts [Tm] float). The macro lists hold their valid rows first, in
+    depth order (tiling.macro_instance_bin), so the count is the row mask.
+    Differentiable in ``packed``."""
+    return (packed[aux.order[aux.sel_m]],
+            torch.stack([aux.x0m, aux.y0m], dim=-1),
+            aux.vld_m.sum(1).to(torch.float32))
+
+
+def _blend(data, vld, tx0, ty0, pmat, bg, pix_ok):
+    """The XLA blend (JAX ``renderer._blend``) of T tiles at once: a dense
+    front-to-back composite of depth-ordered rows data [T, K, F] with
+    validity vld [T, K] at tile origins tx0/ty0 [T] over the pixels of
+    pmat [6, P] (pix_ok [T, P]). The log-alpha is one [K, 6] x [6, P]
+    product per tile of the rows' quadratic coefficients and the pixel
+    basis, and the transmittance the blocked exclusive cumprod, as in the
+    JAX package; the weighted colour, depth and alpha sums one [P, K] x
+    [K, 5] product. Returns (colour [T, P, 3] with the background, depth
+    [T, P], acc [T, P], contrib [T, K, P])."""
+    ul = data[..., _U] - tx0[:, None]
+    vl = data[..., _V] - ty0[:, None]
+    a, b, c = data[..., _CA], data[..., _CB], data[..., _CC]
+    log_opa = data[..., _LOGO]
+    G = torch.stack([
+        -0.5 * a, -b, -0.5 * c, a * ul + b * vl, b * ul + c * vl,
+        -0.5 * (a * ul * ul + 2.0 * b * ul * vl + c * vl * vl) + log_opa,
+    ], dim=-1)                                               # [T, K, 6]
+    s = torch.matmul(G, pmat)                                # [T, K, P]
+    alpha = torch.clamp(torch.exp(torch.clamp(s, max=2.0)), max=0.99)
+    ok = (vld[..., None] & pix_ok[:, None, :]
+          & (s <= log_opa[..., None] + 1e-4) & (alpha >= _ALPHA_MIN))
+    alpha = torch.where(ok, alpha, torch.zeros_like(alpha))
+    one_minus = 1.0 - alpha
+    blk = math.gcd(one_minus.shape[1], 16)
+    t_excl, _ = blocked_cumprod_excl(one_minus, axis=1, block=blk)
+    contrib = ok & (t_excl * one_minus >= _T_EPS)
+    w = torch.where(contrib, alpha * t_excl, torch.zeros_like(alpha))
+    feats = torch.stack([data[..., _R0], data[..., _G0], data[..., _B0],
+                         data[..., _Z], torch.ones_like(ul)], dim=-1)
+    outs = torch.einsum("tkp,tkf->tpf", w, feats)            # [T, P, 5]
+    acc = outs[..., 4]
+    color = outs[..., :3] + (1.0 - acc)[..., None] * bg
+    return color, outs[..., 3], acc, contrib
+
+
+def _xla_blend(packed, idx, vld_f, intr: Intrinsics, cfg: RenderConfig, bg,
+               with_counts: bool):
+    """The XLA render path's blend over every fine tile's list (JAX
+    ``render``'s generic tail): ``packed[idx]`` and ``_blend`` per chunk of
+    ``macro_chunk`` macro tiles (all tiles when 0), each chunk under
+    ``torch.utils.checkpoint`` as ``jax.checkpoint`` rematerialises it in
+    the backward. Returns colour [Tf, P, 3], depth [Tf, P], acc [Tf, P] and,
+    with ``with_counts``, the contributing-pixel count of each list entry
+    [Tf, Kf] (int32)."""
+    dev = packed.device
+    tx0, ty0 = _tile_origins(intr, cfg, dev)
+    pmat = _tile_pmat(cfg, dev)
+    W, H = intr.width, intr.height
+
+    def blend_tiles(packed_, idx_c, vf_c, x0, y0):
+        pix_ok = ((x0[:, None] + pmat[3] <= W - 1)
+                  & (y0[:, None] + pmat[4] <= H - 1))
+        color, depth, acc, contrib = _blend(packed_[idx_c], vf_c, x0, y0,
+                                            pmat, bg, pix_ok)
+        if with_counts:
+            return color, depth, acc, contrib.sum(-1).to(torch.int32)
+        return color, depth, acc
+
+    n_fine = idx.shape[0]
+    ft = cfg.macro_tiles * cfg.macro_tiles
+    chunk = cfg.macro_chunk * ft if cfg.macro_chunk else n_fine
+    parts = [checkpoint(blend_tiles, packed, idx[i:i + chunk],
+                        vld_f[i:i + chunk], tx0[i:i + chunk],
+                        ty0[i:i + chunk], use_reentrant=False)
+             for i in range(0, n_fine, chunk)]
+    out = [torch.cat(x, 0) for x in zip(*parts)]
+    return out if with_counts else out + [None]
+
+
 def render(gauss: GaussianArrays, T_cw, intr: Intrinsics, cfg: RenderConfig,
            tau=None, bg=None, scale_modifier: float = 1.0,
            lists: Optional[TileLists] = None,
            means2d_offset=None) -> RenderResult:
-    """Tiled render through the list blend kernel. Without ``lists`` the
-    scene is binned at this pose first. Without ``cfg.with_n_touched`` it is
-    differentiable in the map, ``tau`` and ``means2d_offset`` (the blend's
-    backward is the VJP kernel); with it, the counts kernel runs and the
-    result is not differentiable, as in the JAX package."""
+    """Tiled render; without ``lists`` the scene is binned at this pose
+    first. The blend follows ``cfg.backend`` (see the module docstring).
+    Differentiable in the map, ``tau`` and ``means2d_offset``, except on
+    ``"pallas_lists"`` with ``cfg.with_n_touched``, where the counts kernel
+    runs, as in the JAX package."""
     _check_backend(cfg)
     n = gauss.xyz.shape[0]
     dev = gauss.xyz.device
     if bg is None:
         bg = torch.zeros((3,), dtype=torch.float32, device=dev)
-    d, vld_f, lists, prep = frame_rows(gauss, T_cw, intr, cfg, tau,
-                                       scale_modifier, lists,
-                                       means2d_offset)
-    tx0, ty0 = _tile_origins(intr, cfg, dev)
-    pmat = _tile_pmat(cfg, dev)
+    prep, packed, lists, aux = _project(gauss, T_cw, intr, cfg, tau,
+                                        scale_modifier, lists, means2d_offset)
     W, H = intr.width, intr.height
+    zeros_n = torch.zeros((n,), dtype=torch.int32, device=dev)
+
+    def result(colors, depths, accs, n_touched):
+        return RenderResult(image=_assemble(colors, intr, cfg),
+                            depth=_assemble(depths[..., None], intr, cfg),
+                            opacity=_assemble(accs[..., None], intr, cfg),
+                            radii=prep.radius, n_touched=n_touched)
+
+    if (cfg.backend in ("pallas", "pallas_compact")
+            and not cfg.with_n_touched and aux is not None):
+        p = cfg.tile * cfg.tile
+        args = (*macro_rows(packed, aux), _tile_pmat(cfg, dev), cfg.tile,
+                cfg.macro_tiles)
+        outs = blend_macros_fn(*args, W, H, k_fine=(
+            cfg.k_fine if cfg.backend == "pallas_compact" else None))
+        outs = outs.reshape(-1, p, 8)                          # [Tf, P, 8]
+        accs = outs[..., 4]
+        colors = outs[..., :3] + (1.0 - accs)[..., None] * bg
+        return result(colors, outs[..., 3], accs, zeros_n)
+
+    # entries culled at the CURRENT pose must not blend even if the (possibly
+    # stale) lists still carry them
+    vld_f = lists.vld & prep.valid[lists.idx]
+    if cfg.backend == "pallas_lists":
+        d = _masked_rows(packed[lists.idx], vld_f)
+        tx0, ty0 = _tile_origins(intr, cfg, dev)
+        pmat = _tile_pmat(cfg, dev)
+        if cfg.with_n_touched:
+            outs, cnts = blend_lists_counts(d.detach(), tx0, ty0, pmat, W, H)
+            cnts = cnts.to(torch.int32)
+        else:
+            outs = blend_lists_fn(d, tx0, ty0, pmat, W, H)
+            cnts = None
+        accs = outs[..., 4]
+        colors = outs[..., :3] + (1.0 - accs)[..., None] * bg
+        depths = outs[..., 3]
+    else:
+        colors, depths, accs, cnts = _xla_blend(
+            packed, lists.idx, vld_f, intr, cfg, bg, cfg.with_n_touched)
+    n_touched = zeros_n
     if cfg.with_n_touched:
-        outs, cnts = blend_lists_counts(d.detach(), tx0, ty0, pmat, W, H)
         orig = torch.where(vld_f, lists.idx, n).reshape(-1)
         n_touched = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
-        n_touched = n_touched.index_add_(
-            0, orig, cnts.to(torch.int32).reshape(-1))[:n]
-    else:
-        outs = blend_lists_fn(d, tx0, ty0, pmat, W, H)
-        n_touched = torch.zeros((n,), dtype=torch.int32, device=dev)
-    accs = outs[..., 4:5]
-    colors = outs[..., :3] + (1.0 - accs) * bg
-    return RenderResult(
-        image=_assemble(colors, intr, cfg),
-        depth=_assemble(outs[..., 3:4], intr, cfg),
-        opacity=_assemble(accs, intr, cfg),
-        radii=prep.radius,
-        n_touched=n_touched,
-    )
+        n_touched = n_touched.index_add_(0, orig, cnts.reshape(-1))[:n]
+    return result(colors, depths, accs, n_touched)
 
 
 def tile_rows(gauss: GaussianArrays, T_cw, intr: Intrinsics,
@@ -557,3 +693,67 @@ def tile_images(img, intr: Intrinsics, cfg: RenderConfig):
     x = x.reshape(c, n_my, mt, tile, n_mx, mt, tile)
     x = x.permute(1, 4, 2, 5, 3, 6, 0)
     return x.reshape(n_mx * n_my * mt * mt, tile * tile, c)
+
+
+def render_golden(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+                  sh_degree: int = 0, near: float = 0.2, tau=None, bg=None,
+                  tile: int = 16) -> RenderResult:
+    """Slow sequential reference renderer (a test model; JAX
+    ``render_golden``): the CUDA rasterizer's per-pixel front-to-back loop
+    with its sticky ``done`` flag, one Gaussian at a time in depth order,
+    each entering the pixels of every ``tile``-px tile its 3-sigma box
+    overlaps. O(N H W): tiny scenes only."""
+    dev = gauss.xyz.device
+    if bg is None:
+        bg = torch.zeros((3,), dtype=torch.float32, device=dev)
+    T_eff = se3.retract(T_cw, tau) if tau is not None else T_cw
+    prep = preprocess(gauss.xyz, gauss.log_scale, gauss.quat,
+                      gauss.opa_logit, gauss.sh, gauss.active, T_eff, intr,
+                      sh_degree=sh_degree, near=near)
+    n = gauss.xyz.shape[0]
+    order = torch.argsort(torch.where(prep.valid, prep.z,
+                                      torch.full_like(prep.z, float("inf"))),
+                          stable=True)
+    packed = _pack(prep)[order]
+    valid_s = prep.valid[order]
+    H, W = intr.height, intr.width
+    i = torch.arange(H * W, device=dev)
+    px = (i % W).to(torch.float32)
+    py = (i // W).to(torch.float32)
+    tile_x0 = torch.floor(px / tile) * tile
+    tile_y0 = torch.floor(py / tile) * tile
+    C = torch.zeros((H * W, 3), device=dev)
+    D = torch.zeros((H * W,), device=dev)
+    A = torch.zeros((H * W,), device=dev)
+    T = torch.ones((H * W,), device=dev)
+    done = torch.zeros((H * W,), dtype=torch.bool, device=dev)
+    nt_sorted = []
+    for g, v in zip(packed, valid_s):
+        dx = g[_U] - px
+        dy = g[_V] - py
+        power = (-0.5 * (g[_CA] * dx * dx + g[_CC] * dy * dy)
+                 - g[_CB] * dx * dy)
+        alpha = torch.clamp(g[_OPA] * torch.exp(power), max=0.99)
+        in_tile = ((g[_U] + g[_RAD] >= tile_x0)
+                   & (g[_U] - g[_RAD] <= tile_x0 + tile - 1)
+                   & (g[_V] + g[_RAD] >= tile_y0)
+                   & (g[_V] - g[_RAD] <= tile_y0 + tile - 1))
+        ok = v & in_tile & (power <= 0.0) & (alpha >= _ALPHA_MIN)
+        alpha = torch.where(ok, alpha, torch.zeros_like(alpha))
+        test = T * (1.0 - alpha)
+        fail = ok & (test < _T_EPS)
+        contrib = ok & ~done & ~fail
+        w = torch.where(contrib, alpha * T, torch.zeros_like(alpha))
+        C = C + w[:, None] * g[_R0:_B0 + 1][None, :]
+        D = D + w * g[_Z]
+        A = A + w
+        T = torch.where(contrib, test, T)
+        done = done | fail
+        nt_sorted.append(contrib.sum().to(torch.int32))
+    C = C + T[:, None] * bg[None, :]
+    n_touched = torch.zeros((n,), dtype=torch.int32, device=dev)
+    if n:
+        n_touched[order] = torch.stack(nt_sorted)
+    return RenderResult(image=C.reshape(H, W, 3).permute(2, 0, 1),
+                        depth=D.reshape(1, H, W), opacity=A.reshape(1, H, W),
+                        radii=prep.radius, n_touched=n_touched)

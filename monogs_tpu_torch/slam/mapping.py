@@ -1,14 +1,24 @@
 """Mapping: keyframe-window bundle adjustment and colour refinement.
 
-Counterpart of ``monogs_tpu/slam/mapping.py`` for the branch the shipped
-configuration takes (``bench.py::bench_mapping``): frozen per-view margin
-tile lists (``bin_margin > 0``), one fused map_grad kernel per view per
-iteration (``fused_grad``) over all tiles or a fresh random tile subset
-(``tile_frac < 1``), mono and RGB-D, ``initialization``, the window
-pose/exposure Adam with retraction, densify/prune and the opacity resets on
-their schedule, list rebuilds every ``rebin_every`` iterations and after a
-densify, and the final visibility pass from the lists
-(``vis_from_lists``).
+Counterpart of ``monogs_tpu/slam/mapping.py``. ``map_iters`` takes one of
+the JAX package's two branches:
+
+- fused (``bin_margin > 0``, ``fused_grad`` and ``backend="pallas_lists"``,
+  the shipped configuration, ``bench.py::bench_mapping``): frozen per-view
+  margin tile lists and one fused map_grad kernel per view per iteration
+  over all tiles or a fresh random tile subset (``tile_frac < 1``);
+- unfused (otherwise): per view, the mapping loss of a differentiable
+  ``render`` and its gradients by autograd, the isotropic regulariser
+  inside the loss. With ``bin_margin == 0`` every render bins its view
+  anew and blends through ``cfg.backend`` (the macro-list kernels on
+  ``"pallas"`` / ``"pallas_compact"``); with frozen lists it blends them
+  through the list kernels (``"pallas_lists"``) or the XLA blend.
+
+Both cover mono and RGB-D, ``initialization``, the window pose/exposure
+Adam with retraction, densify/prune and the opacity resets on their
+schedule; the fused branch also rebuilds its lists every ``rebin_every``
+iterations and after a densify. The final visibility pass renders with
+``n_touched``, from the lists (``vis_from_lists``) or binning anew.
 
 The JAX package runs a call as one program (``lax.fori_loop``); here it is
 a Python loop over device tensors. The densify, reset and rebuild schedule
@@ -21,12 +31,14 @@ freed when its pull-back returns, as ``lax.map`` bounds the JAX program's
 memory.
 
 Random draws come from a ``torch.Generator``: per iteration, each view's
-tile subset, then the split noise of a densify; per colour-refinement
-iteration, the view. ``MapDraws`` and ``views`` replace them with given
-values, so a test can replay the JAX package's ``jax.random`` keys.
+tile subset (fused branch with ``tile_frac < 1`` only), then the split
+noise of a densify; per colour-refinement iteration, the view.
+``MapDraws`` and ``views`` replace them with given values, so a test can
+replay the JAX package's ``jax.random`` keys.
 
-The other branches raise ``NotImplementedError`` and name the slice that
-brings them.
+The A/B knobs ``batch_render``, ``io_batch``, ``scatter_segsum`` and
+``gather_first``, where they would take effect, and ``axis_name`` raise
+``NotImplementedError`` and name the slice that brings them.
 """
 
 from __future__ import annotations
@@ -40,8 +52,8 @@ from ..ops import losses, se3
 from ..ops.image import ssim as ssim_fn
 from ..render.camera import Intrinsics
 from ..render.renderer import (
-    GaussianArrays, RenderConfig, TileLists, _tile_origins, build_tile_lists,
-    render, render_map_grad, tile_images,
+    GaussianArrays, RenderConfig, TileLists, _check_backend, _tile_origins,
+    build_tile_lists, render, render_map_grad, tile_images,
 )
 
 
@@ -144,35 +156,83 @@ class MapResult(NamedTuple):
 _AB_SLICE = "the mapping A/B-knobs slice"
 
 
+def _fused(cfg: RenderConfig, mcfg: MapConfig) -> bool:
+    """Whether map_iters takes the fused branch (JAX mapping.py:331-336)."""
+    return (mcfg.bin_margin > 0 and mcfg.fused_grad
+            and cfg.backend == "pallas_lists")
+
+
 def _check_supported(cfg: RenderConfig, mcfg: MapConfig, axis_name):
-    if cfg.backend != "pallas_lists":
-        raise NotImplementedError(
-            f"backend={cfg.backend!r}: mapping is ported for the list blend "
-            "only; the other backends arrive with the alternative-backends "
-            "slice")
     if axis_name is not None:
         raise NotImplementedError(
             "axis_name (the view-sharded mapping program) arrives with the "
             "parallel slice")
-    for knob, off in (("bin_margin > 0", mcfg.bin_margin > 0),
-                      ("fused_grad", mcfg.fused_grad),
-                      ("batch_render", not mcfg.batch_render),
-                      ("io_batch", not mcfg.io_batch),
-                      ("scatter_segsum", not mcfg.scatter_segsum),
-                      ("gather_first", not mcfg.gather_first)):
-        if not off:
+    fused = _fused(cfg, mcfg)
+    # each knob only where the JAX package would take it
+    for knob, on in (("io_batch", fused and mcfg.io_batch),
+                     ("scatter_segsum", fused and mcfg.scatter_segsum),
+                     ("gather_first", fused and mcfg.gather_first),
+                     ("batch_render", not fused and mcfg.batch_render
+                      and mcfg.bin_margin > 0
+                      and cfg.backend == "pallas_lists")):
+        if on:
             raise NotImplementedError(
-                f"MapConfig {knob}: only the shipped fused branch "
-                f"(bin_margin > 0, fused_grad, no batch_render / io_batch / "
-                f"scatter_segsum / gather_first) is ported; the rest arrives "
-                f"with {_AB_SLICE}")
-    if not mcfg.vis_from_lists:
-        raise NotImplementedError(
-            f"MapConfig vis_from_lists=False arrives with {_AB_SLICE}")
+                f"MapConfig {knob}: a default-off A/B knob of the JAX "
+                f"package; it arrives with {_AB_SLICE}")
 
 
 def _draw(seq: Sequence, i: int):
     return seq[i] if i < len(seq) else None
+
+
+def _mapping_loss_one(gauss: GaussianArrays, T, gt_image, gt_depth, mask,
+                      ea, eb, tau, off, intr: Intrinsics, cfg: RenderConfig,
+                      mcfg: MapConfig, initialization: bool, lists=None):
+    """Render one view and its mapping loss (slam_utils.py:224-253);
+    returns (loss, radii)."""
+    out = render(gauss, T, intr, cfg, tau=tau, means2d_offset=off,
+                 lists=lists)
+    if mcfg.monocular:
+        loss = losses.mapping_loss_rgb(out.image, gt_image, mask, ea, eb,
+                                       initialization=initialization)
+    else:
+        loss = losses.mapping_loss_rgbd(out.image, out.depth, gt_image,
+                                        gt_depth, mask, ea, eb,
+                                        alpha=mcfg.alpha,
+                                        initialization=initialization)
+    return loss, out.radii
+
+
+def _view_loss_grads(gauss: GaussianArrays, cams: CamBatch, v: int, T, ea,
+                     eb, intr: Intrinsics, cfg: RenderConfig, mcfg: MapConfig,
+                     initialization: bool, lists=None):
+    """One view's term of the unfused branch (a step of JAX ``_batch_loss``'s
+    ``lax.map`` under ``value_and_grad``): the mapping loss and its
+    gradients in the map leaves, the pose tangent, the zero screen-space
+    hook [N, 2] and the exposures, by autograd through the render; the
+    view's graph is freed when it returns. Same tuple as
+    ``render_map_grad``."""
+    n, dev = gauss.xyz.shape[0], gauss.xyz.device
+    leaves = [x.detach().requires_grad_(True) for x in
+              (gauss.xyz, gauss.sh, gauss.log_scale, gauss.quat,
+               gauss.opa_logit)]
+    extra = [torch.zeros(6, device=dev).requires_grad_(True),
+             torch.zeros((n, 2), device=dev).requires_grad_(True),
+             ea.detach().requires_grad_(True),
+             eb.detach().requires_grad_(True)]
+    with torch.enable_grad():
+        loss, radii = _mapping_loss_one(
+            GaussianArrays(*leaves, active=gauss.active), T,
+            cams.gt_image[v], cams.gt_depth[v], cams.mapping_mask[v],
+            extra[2], extra[3], extra[0], extra[1], intr, cfg, mcfg,
+            initialization, lists)
+    xs = leaves + extra
+    grads = torch.autograd.grad(loss, xs, allow_unused=True)
+    # the exposures do not enter an initialisation loss
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, xs)]
+    return (loss.detach(), tuple(grads[:5]), grads[5], grads[6], grads[7],
+            grads[8], radii.detach())
 
 
 def _build_lists(m: gm.GaussianMap, Ts, intr, cfg, margin):
@@ -187,11 +247,13 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
               draws: Optional[MapDraws] = None) -> MapResult:
     """Run ``n_iters`` mapping iterations over the window ``cams``.
 
-    Per iteration: every view's fused loss and gradient (map parameters,
-    pose tangent, screen-space hook, exposure), the isotropic regulariser,
+    Per iteration: every view's loss and gradient (map parameters, pose
+    tangent, screen-space hook, exposure; fused or unfused, see the module
+    docstring), the isotropic regulariser,
     the densification statistics, one map Adam step, densify / prune and
     the opacity reset on their schedule, the window pose/exposure Adam with
-    retraction (not when ``initialization``), and a list rebuild when due.
+    retraction (not when ``initialization``), and a list rebuild when due
+    (``bin_margin > 0``).
     ``kf_adam`` carries the window Adam state across calls. All tensors lie
     on one device; ``generator`` is a ``torch.Generator`` on it."""
     _check_supported(cfg, mcfg, axis_name)
@@ -206,20 +268,26 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
     opt_mask = torch.cat([cams.opt_pose[:, None].expand(b, 6),
                           cams.opt_exposure[:, None].expand(b, 2)], dim=-1)
     valid_f = cams.valid.to(torch.float32)
+    use_lists = mcfg.bin_margin > 0
+    fused = _fused(cfg, mcfg)
 
     def tiles(imgs):
         return [tile_images(im, intr, cfg_iter) for im in imgs]
 
-    gt_tb, mask_tb = tiles(cams.gt_image), tiles(cams.mapping_mask)
-    gtd_tb = None if mcfg.monocular else tiles(cams.gt_depth)
+    if fused:
+        # the ground truth in tile space, once per call
+        gt_tb, mask_tb = tiles(cams.gt_image), tiles(cams.mapping_mask)
+        gtd_tb = None if mcfg.monocular else tiles(cams.gt_depth)
     tx0f, ty0f = _tile_origins(intr, cfg_iter, dev)
     n_fine = tx0f.shape[0]
-    use_sub = mcfg.tile_frac < 1.0
+    # tile subsets ride the fused branch only
+    use_sub = fused and mcfg.tile_frac < 1.0
     # a multiple of 8 tiles, as the JAX package keeps it; it sets px_frac
     n_sub = max(8, int(n_fine * mcfg.tile_frac) // 8 * 8)
     px_frac = n_sub / n_fine if use_sub else 1.0
 
-    lists = _build_lists(m, cams.T, intr, cfg_iter, mcfg.bin_margin)
+    lists = (_build_lists(m, cams.T, intr, cfg_iter, mcfg.bin_margin)
+             if use_lists else [None] * b)
     kam, kav, kat = kf_adam if kf_adam is not None else new_kf_adam(b, dev)
     T, ea, eb = cams.T, cams.ea, cams.eb
     tau0 = torch.zeros(6, dtype=torch.float32, device=dev)
@@ -244,20 +312,26 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
         radii_d = torch.zeros_like(accum)
         visible_any = torch.zeros(n, dtype=torch.bool, device=dev)
         for v in range(b):
-            li, lv = lists[v].idx, lists[v].vld
-            gt_t, mask_t = gt_tb[v], mask_tb[v]
-            gtd_t = None if gtd_tb is None else gtd_tb[v]
-            txy = None
-            if use_sub:
-                ts = tsel_b[v]
-                li, lv, gt_t, mask_t = li[ts], lv[ts], gt_t[ts], mask_t[ts]
-                if gtd_t is not None:
-                    gtd_t = gtd_t[ts]
-                txy = (tx0f[ts], ty0f[ts])
-            _, gl, gt_v, go_v, gea_v, geb_v, radii_v = render_map_grad(
-                gauss, T[v], intr, cfg_iter, TileLists(idx=li, vld=lv), gt_t,
-                mask_t, tau0, off0, ea[v], eb[v], initialization, mcfg.alpha,
-                gtd_t=gtd_t, txy=txy, px_frac=px_frac)
+            if not fused:
+                _, gl, gt_v, go_v, gea_v, geb_v, radii_v = _view_loss_grads(
+                    gauss, cams, v, T[v], ea[v], eb[v], intr, cfg_iter, mcfg,
+                    initialization, lists[v])
+            else:
+                li, lv = lists[v].idx, lists[v].vld
+                gt_t, mask_t = gt_tb[v], mask_tb[v]
+                gtd_t = None if gtd_tb is None else gtd_tb[v]
+                txy = None
+                if use_sub:
+                    ts = tsel_b[v]
+                    li, lv = li[ts], lv[ts]
+                    gt_t, mask_t = gt_t[ts], mask_t[ts]
+                    if gtd_t is not None:
+                        gtd_t = gtd_t[ts]
+                    txy = (tx0f[ts], ty0f[ts])
+                _, gl, gt_v, go_v, gea_v, geb_v, radii_v = render_map_grad(
+                    gauss, T[v], intr, cfg_iter, TileLists(idx=li, vld=lv),
+                    gt_t, mask_t, tau0, off0, ea[v], eb[v], initialization,
+                    mcfg.alpha, gtd_t=gtd_t, txy=txy, px_frac=px_frac)
             s = valid_f[v]
             gl = [g * s for g in gl]
             g_leaves = gl if g_leaves is None else [
@@ -324,11 +398,14 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
         # rebuild when stale or when the Gaussian set changed (new slots
         # are in no list)
         since += 1
-        if since >= mcfg.rebin_every or do_dens:
+        if use_lists and (since >= mcfg.rebin_every or do_dens):
             lists = _build_lists(m, T, intr, cfg_iter, mcfg.bin_margin)
             since = 0
 
+    # the final visibility pass, from the lists or binning anew
     gauss = m.render_view()
+    if not (use_lists and mcfg.vis_from_lists):
+        lists = [None] * b
     visibility = torch.stack([
         (render(gauss, T[v], intr, cfg, lists=lists[v]).n_touched > 0)
         & cams.valid[v] for v in range(b)])
@@ -363,17 +440,19 @@ def color_refinement_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int,
                            views=None) -> gm.GaussianMap:
     """Photometric refinement: per iteration one random staged view, loss
     (1 - lambda) L1 + lambda (1 - SSIM) against its raw ground truth (no
-    exposure, no mask), gradients through the differentiable render (the
-    blend VJP kernel), Adam on the map with the xyz schedule at the local
-    iteration. The staged views' lists are rebuilt every ``rebin_every``
-    iterations. ``views`` [n_iters] replaces the view draws."""
-    _check_supported(cfg, mcfg, None)
+    exposure, no mask), gradients through the differentiable render (a
+    VJP kernel of ``cfg.backend``), Adam on the map with the xyz schedule at
+    the local iteration. With ``bin_margin > 0`` the staged views' lists
+    are rebuilt every ``rebin_every`` iterations; without, every render
+    bins its view. ``views`` [n_iters] replaces the view draws."""
+    _check_backend(cfg)
     dev = cams.T.device
     cfg_iter = cfg._replace(with_n_touched=False)
     n_valid = torch.clamp(torch.sum(cams.valid.to(torch.int64)), min=1)
     lam = mcfg.lambda_dssim
+    use_lists = mcfg.bin_margin > 0
     for i in range(n_iters):
-        if i % mcfg.rebin_every == 0:
+        if use_lists and i % mcfg.rebin_every == 0:
             lists = _build_lists(m, cams.T, intr, cfg_iter, mcfg.bin_margin)
             l_idx = torch.stack([x.idx for x in lists])
             l_vld = torch.stack([x.vld for x in lists])
@@ -389,8 +468,9 @@ def color_refinement_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int,
         leaves = [p.detach().requires_grad_(True) for p in m.params]
         with torch.enable_grad():
             gauss = GaussianArrays(*leaves, active=m.active)
-            out = render(gauss, pick(cams.T), intr, cfg_iter,
-                         lists=TileLists(idx=pick(l_idx), vld=pick(l_vld)))
+            lists_v = (TileLists(idx=pick(l_idx), vld=pick(l_vld))
+                       if use_lists else None)
+            out = render(gauss, pick(cams.T), intr, cfg_iter, lists=lists_v)
             gt = pick(cams.gt_image)
             l1 = torch.mean(losses.abs_(out.image - gt))
             loss = (1.0 - lam) * l1 + lam * (1.0 - ssim_fn(out.image, gt))

@@ -141,8 +141,10 @@ def _check_supported(cfg: RenderConfig, tcfg: TrackConfig):
     if cfg.backend != "pallas_lists":
         raise NotImplementedError(
             f"backend={cfg.backend!r}: tracking is ported for the list blend "
-            "only; the other backends arrive with the alternative-backends "
-            "slice")
+            "only. On the other backends the JAX package's frame takes its "
+            "unfused branches (the XLA blend over frozen lists; without "
+            "lists, a second-order phase by jax.linearize), which arrive "
+            "with the tracking A/B-knobs slice")
     if tcfg.bin_margin <= 0:
         raise NotImplementedError(
             "bin_margin == 0 (per-iteration rebinning through the "

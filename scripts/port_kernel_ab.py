@@ -1,0 +1,137 @@
+"""Time the port's list-blend kernels against other builds of them, in
+turns, on one NVIDIA GPU.
+
+    python3 scripts/port_kernel_ab.py --against DIR [DIR ...] [--rounds N]
+    python3 scripts/port_kernel_ab.py --no-fmad [--rounds N]
+
+The other builds are either ``csrc/blend_lists.cu`` of other checkouts
+(for example the parent commit, unpacked with ``git archive``), with this
+checkout's nvcc flags, or this checkout's source without ``-fmad=false``
+(nvcc then contracts a * b + c into one FFMA; the library is built with the
+flag so that its alpha and transmittance thresholds round as the plain
+PyTorch version's do). Every build must have the same C interface.
+
+It prints each build's registers per kernel (``ptxas -v``), then runs
+chip_smoke's tracking and mapping kernel phases (kernels 1-6 at the main
+path's shapes, each held against its plain version) with the libraries in
+turns: each round runs every build once and then again in reverse order,
+starting one build later than the round before, so that over as many
+rounds as builds each build takes every place. It prints one JSON line per
+turn and kernel (time, bound, error, within tolerance), then per kernel the
+median time of each build over its turns and its ratio to the first other
+build, then the card's name and power limit. Needs one CUDA card and nvcc;
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import re
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def build(src: Path, flags: list[str]):
+    """Build ``src`` with ``flags`` (and ``-Xptxas -v``) into this
+    checkout's build directory; returns the library loaded with
+    blend_lists' C interface and {kernel: registers}."""
+    from monogs_tpu_torch import _build
+
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(flags).encode())
+    out = _build.BUILD_DIR / f"libblend_lists_ab_{h.hexdigest()[:12]}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    r = subprocess.run([_build.nvcc_path(), *flags, "-Xptxas", "-v", "-o",
+                        str(out), str(src)], capture_output=True, text=True)
+    if r.returncode != 0:
+        sys.exit(f"nvcc failed for {src}:\n{r.stdout}{r.stderr}")
+    regs, fn = {}, None
+    for line in (r.stdout + r.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            regs[fn] = int(m.group(1))
+    return _build.load(out, "blend_lists"), regs
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    other = ap.add_mutually_exclusive_group(required=True)
+    other.add_argument("--against", type=Path, nargs="+",
+                       help="roots of other checkouts whose blend_lists.cu "
+                            "are the other builds")
+    other.add_argument("--no-fmad", action="store_true",
+                       help="the other build is this source without "
+                            "-fmad=false")
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="rounds of turns (default %(default)s)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("port_kernel_ab: needs a CUDA card")
+    from monogs_tpu_torch import _build
+
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    srcs = {}
+    if args.no_fmad:
+        srcs["no_fmad"] = (_build.SOURCES["blend_lists"],
+                           [f for f in flags if f != "-fmad=false"])
+    else:
+        for d in args.against:
+            srcs[d.name] = (d / "monogs_tpu_torch" / "csrc" /
+                            "blend_lists.cu", flags)
+    others = list(srcs)
+    srcs["this"] = (_build.SOURCES["blend_lists"], flags)
+    libs = {}
+    for name, (src, fl) in srcs.items():
+        libs[name], regs = build(src, fl)
+        print(json.dumps({"build": name, "registers": regs}), flush=True)
+    e_exp, _ = cs.expf_ops()
+
+    dev = torch.device("cuda")
+    intr, cfg, tcfg, scene, poses_fn = cs.make_bench(torch, dev)
+    poses = poses_fn(3, 42)
+    frame = cs.render_frames(torch, scene, poses[2:], intr, cfg,
+                             with_depth=True)[0][0]
+    times: dict[str, dict[str, list[float]]] = {}
+    names = others + ["this"]
+    order = []
+    for r in range(args.rounds):
+        rot = names[r % len(names):] + names[:r % len(names)]
+        order += rot + rot[::-1]
+    for turn, name in enumerate(order):
+        _build._LIBS["blend_lists"] = libs[name]
+        entries = cs.kernel_phase(torch, intr, cfg, tcfg, scene, poses[1],
+                                  frame, e_exp, strict=False)
+        entries.update(cs.mapping_kernel_phase(torch, intr, cfg, scene,
+                                               poses[1], frame, e_exp))
+        for e in entries.values():
+            times.setdefault(e["name"], {}).setdefault(name, []).append(
+                e["ms"])
+            print(json.dumps({"turn": turn, "build": name, **{
+                k: e[k] for k in ("name", "ms", "bound_ms", "max_abs_err",
+                                  "within_tol")}}), flush=True)
+    _build._LIBS["blend_lists"] = libs["this"]
+    for kernel, t in times.items():
+        med = {b: statistics.median(v) for b, v in t.items()}
+        print(json.dumps({"name": kernel, "median_ms": med, "over_first": {
+            b: m / med[others[0]] for b, m in med.items()}}), flush=True)
+    print(cs.smi_line(), flush=True)
+
+
+if __name__ == "__main__":
+    main()

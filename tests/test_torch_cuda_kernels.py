@@ -218,3 +218,124 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
                        tx0, ty0, pmat, W, H)
     with pytest.raises(ValueError, match="float32 CUDA"):
         bl.blend_lists(d, tx0.cpu(), ty0, pmat, W, H)
+
+
+# ------------------------------------------------------ macro-list kernels
+
+def macro_case(dev, shape):
+    """(data_m, xy0, counts, pmat, tile, ft_side, W, H, k_fine) from a
+    synthetic scene binned at a small pose: the small frame of this file,
+    the bench's 640x480 (k_macro 1024, k_fine 96), the 320x240 of
+    configs/synthetic/rgbd.yaml (k_macro 4096, k_fine 256) or a 100x77
+    frame that is no multiple of the tile. Macro 0's count is set to 0 and
+    the first ten valid rows of macro 1 are moved off every tile."""
+    intr, k_macro, k_fine, n = {
+        "small": (INTR, 1024, 96, 3000),
+        "bench": (Intrinsics(fx=535.4, fy=539.2, cx=320.1, cy=247.6,
+                             width=640, height=480), 1024, 96, 30000),
+        "rgbd": (Intrinsics(fx=320.0, fy=320.0, cx=159.5, cy=119.5,
+                            width=320, height=240), 4096, 256, 30000),
+        "odd": (Intrinsics(fx=100.0, fy=100.0, cx=49.5, cy=38.0, width=100,
+                           height=77), 1024, 96, 3000),
+    }[shape]
+    cfg = CFG._replace(k_macro=k_macro, k_fine=k_fine)
+    g = torch.Generator().manual_seed(5)
+    scene = make_synthetic_scene(g, n=n, spread=2.0, depth_mean=3.0,
+                                 scale_min=0.015, scale_max=0.06)
+    scene = type(scene)(*(x.to(dev) for x in scene))
+    T = se3.se3_exp(torch.tensor([0.01, -0.02, 0.0, 0.01, 0.0, -0.01],
+                                 device=dev))
+    with torch.no_grad():
+        _, packed, _, aux = rr._project(scene, T, intr, cfg)
+        data_m, xy0, counts = rr.macro_rows(packed, aux)
+        data_m = data_m.contiguous()
+    counts[0] = 0.0
+    data_m[1, :10, rr._U] = -1000.0
+    assert float(counts[1]) > 10 and float(counts.max()) > 0
+    return (data_m, xy0, counts, rr._tile_pmat(cfg, dev), cfg.tile,
+            cfg.macro_tiles, intr.width, intr.height, k_fine)
+
+
+def macro_fns(kind, k_fine):
+    """(k_fine argument, plain forward, plain VJP with the same trailing
+    arguments, launch counter keys) of the masked walk or of the compact
+    blend."""
+    from monogs_tpu_torch.render import blend_macros as bm
+
+    if kind == "macro":
+        return (None, bm.blend_macros_plain, bm.blend_macros_vjp_plain, (),
+                ("macro_fwd", "macro_bwd"))
+    return (k_fine, bm.blend_compact_plain, bm.blend_compact_vjp_plain,
+            (k_fine,), ("compact_fwd", "compact_bwd"))
+
+
+@pytest.mark.parametrize("shape", ["small", "bench", "rgbd", "odd"])
+@pytest.mark.parametrize("kind", ["macro", "compact"])
+def test_macro_kernels_on_card(card, kind, shape):
+    """Forward and VJP of the masked walk and of the compact blend against
+    their plain versions; a macro with count 0 and rows off every tile
+    get no cotangent; two launches of the VJP are bit-identical."""
+    from monogs_tpu_torch.render import blend_macros as bm
+
+    (data_m, xy0, counts, pmat, tile, fs, w, h, k_fine) = macro_case(card,
+                                                                     shape)
+    kf, fwd_p, vjp_p, extra, keys = macro_fns(kind, k_fine)
+    args = (data_m, xy0, counts, pmat)
+    geo = (tile, fs, w, h)
+    n0 = dict(bm.LAUNCHES)
+    outs = bm.blend_macros(*args, *geo, k_fine=kf)
+    assert_outs(outs, fwd_p(*args, *geo, *extra))
+    g = torch.Generator(device=card).manual_seed(6)
+    g_outs = torch.randn(outs.shape, generator=g, device=card)
+    dd = bm.blend_macros_vjp(*args, g_outs, *geo, k_fine=kf)
+    want = vjp_p(*args, g_outs, *geo, *extra)
+    assert_per_column(dd, want, 1e-4)
+    assert torch.equal(dd, bm.blend_macros_vjp(*args, g_outs, *geo,
+                                               k_fine=kf))
+    assert bm.LAUNCHES[keys[0]] == n0[keys[0]] + 1
+    assert bm.LAUNCHES[keys[1]] == n0[keys[1]] + 2
+    assert float(torch.abs(dd[0]).max()) == 0.0
+    assert float(torch.abs(dd[1, :10]).max()) == 0.0
+    assert float(torch.abs(outs[0, ..., 4]).max()) == 0.0
+    assert float(torch.abs(want).max()) > 0
+
+
+@pytest.mark.parametrize("kind", ["macro", "compact"])
+def test_macro_function_backward_on_card(card, kind):
+    """The differentiable Function's backward (the VJP kernel) against
+    autograd through the plain forward, on the same card."""
+    from monogs_tpu_torch.render import blend_macros as bm
+
+    (data_m, xy0, counts, pmat, tile, fs, w, h, k_fine) = macro_case(card,
+                                                                     "small")
+    kf, fwd_p, _, extra, _ = macro_fns(kind, k_fine)
+    g = torch.Generator(device=card).manual_seed(7)
+    wts = torch.randn((data_m.shape[0], fs * fs, tile * tile, 8),
+                      generator=g, device=card)
+    grads = []
+    for f, tail, kw in ((bm.blend_macros_fn, (), dict(k_fine=kf)),
+                        (fwd_p, extra, {})):
+        x = data_m.clone().requires_grad_(True)
+        torch.sum(f(x, xy0, counts, pmat, tile, fs, w, h, *tail, **kw)
+                  * wts).backward()
+        grads.append(x.grad)
+    assert_per_column(grads[0], grads[1], 1e-4)
+
+
+def test_macro_list_too_long_is_refused(card):
+    """A masked-walk VJP whose row index and checkpoints do not fit in a
+    CTA's shared memory raises, and the next launch runs."""
+    from monogs_tpu_torch.render import blend_macros as bm
+
+    (data_m, xy0, counts, pmat, tile, fs, w, h, _) = macro_case(card,
+                                                                "small")
+    long_m = torch.zeros((data_m.shape[0], 16384, data_m.shape[2]),
+                         device=card)
+    long_m[:, :data_m.shape[1]] = data_m
+    g_outs = torch.ones((data_m.shape[0], fs * fs, tile * tile, 8),
+                        device=card)
+    with pytest.raises(RuntimeError, match="macro_bwd"):
+        bm.blend_macros_vjp(long_m, xy0, counts, pmat, g_outs, tile, fs, w, h)
+    outs = bm.blend_macros(data_m, xy0, counts, pmat, tile, fs, w, h)
+    assert_outs(outs, bm.blend_macros_plain(data_m, xy0, counts, pmat, tile,
+                                            fs, w, h))

@@ -446,17 +446,31 @@ def test_color_refinement_parity():
     assert float(torch.abs(b.params.sh - tm.params.sh).max()) > 1e-4
 
 
-@pytest.mark.parametrize("change,where", [
-    (dict(bin_margin=0.0), "A/B-knobs"), (dict(fused_grad=False), "A/B"),
-    (dict(io_batch=True), "A/B"), (dict(batch_render=True), "A/B"),
-    (dict(scatter_segsum=True), "A/B"), (dict(gather_first=True), "A/B"),
-    (dict(vis_from_lists=False), "A/B"),
+@pytest.mark.parametrize("change", [
+    dict(io_batch=True), dict(scatter_segsum=True), dict(gather_first=True),
+    dict(batch_render=True, fused_grad=False),
 ])
-def test_unported_branches_raise(change, where):
-    with pytest.raises(NotImplementedError, match=where):
+def test_unported_branches_raise(change):
+    """The A/B knobs where the JAX package would take them (batch_render on
+    the unfused branch over frozen lists) name their slice."""
+    with pytest.raises(NotImplementedError, match="A/B-knobs slice"):
         tmap._check_supported(TC, tmap.MapConfig(**change), None)
     with pytest.raises(NotImplementedError, match="parallel slice"):
         tmap._check_supported(TC, tmap.MapConfig(), "views")
     with pytest.raises(NotImplementedError, match="parallel slice"):
         tr.map_grad_from_rows(None, TI, TC, None, None, None, None, False,
                               0.9, madd=torch.zeros(1))
+
+
+@pytest.mark.parametrize("change", [
+    dict(bin_margin=0.0), dict(fused_grad=False), dict(vis_from_lists=False),
+    dict(batch_render=True), dict(bin_margin=0.0, io_batch=True,
+                                  scatter_segsum=True, gather_first=True),
+])
+def test_ported_branches_accepted(change):
+    """The unfused branch and the visibility pass without lists run; a knob
+    of a branch not taken is ignored, as in the JAX package."""
+    tmap._check_supported(TC, tmap.MapConfig(**change), None)
+    for backend in ("xla", "pallas", "pallas_compact"):
+        tmap._check_supported(TC._replace(backend=backend),
+                              tmap.MapConfig(**change), None)

@@ -147,6 +147,7 @@ def test_unported_branches_raise(change, slice_name):
     tcfg = ttrack.TrackConfig(**{**TRACK, **change})
     with pytest.raises(NotImplementedError, match=slice_name):
         ttrack._check_supported(cfg, tcfg)
-    with pytest.raises(NotImplementedError, match="alternative-backends"):
+    with pytest.raises(NotImplementedError,
+                       match="backend='xla'.*tracking A/B-knobs slice"):
         ttrack._check_supported(RenderConfig(backend="xla"),
                                 ttrack.TrackConfig(**TRACK))
