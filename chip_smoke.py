@@ -20,7 +20,9 @@ JAX. Phases, each of which exits non-zero on failure:
    kernels of the "pallas" and "pallas_compact" render backends on the
    scene's macro lists at frame 1's pose with the L1 cotangent of frame 2,
    at the bench shape (k_macro 1024, k_fine 96) and at the 320x240 /
-   k_macro 4096 / k_fine 256 shape of configs/synthetic/rgbd.yaml;
+   k_macro 4096 / k_fine 256 shape of configs/synthetic/rgbd.yaml; and
+   the mapping step's madd variant on raw rows at both mapping shapes,
+   also bit for bit against the step on the same rows pre-masked;
 3. tracking path: render the 22 frames of a jittered orbit around a
    100k-Gaussian synthetic scene through the port's ``render``, track a
    20-frame monocular chain with the shipped tracking configuration
@@ -39,7 +41,14 @@ JAX. Phases, each of which exits non-zero on failure:
    "pallas", then 10 BA iterations of the same window on "pallas", 10 more
    on "pallas_compact", 5 RGB-D iterations on "pallas" and 10
    colour-refinement steps without lists, timed by the delta method, with
-   host syncs, peak memory and one profiled iteration.
+   host syncs, peak memory and one profiled iteration;
+6. A/B mapping path: 5 BA iterations of the same window with each of
+   io_batch (the mapping step's madd kernel), scatter_segsum, gather_first
+   at tile_frac 0.25 and batch_render, each held against the default fused
+   branch from the same state, then 2 RGB-D io_batch iterations;
+7. A/B tracking path: 3 frames of the mono chain on each of the unfused
+   first order over lists, "xla" with bin_margin 0 (linearised second
+   order) and "pallas" with bin_margin 0 (first order only).
 Each path's launch counters are zeroed just before it and read just after.
 
 Output, one JSON object per line: each path's metrics, then
@@ -105,6 +114,9 @@ def kernel_ops(name, n, e_exp):
       partials are this design's cost, not the function's, and are left
       out.
 
+    - the mapping step's ``madd`` variant does the mapping step's work;
+      its one add per staged row is work per row.
+
     Work per row or per pixel (the row cotangents, the residual), under 2 %
     of the total at these shapes, is left out: a lower bound.
     """
@@ -125,6 +137,8 @@ def kernel_ops(name, n, e_exp):
         "jvp8": fwd + (12 + 6 * 34) * live + 6 * 19 * dead,
         "map_grad": fwd + 29 * live + 13 * dead,
         "map_grad_rgbd": fwd + 33 * live + 17 * dead,
+        "map_grad_madd": fwd + 29 * live + 13 * dead,
+        "map_grad_madd_rgbd": fwd + 33 * live + 17 * dead,
         "bwd": bwd,
     }[name.split("@")[0]]
 
@@ -209,6 +223,14 @@ KERNELS = {
     "map_grad_rgbd": (f"{REPLACES}:636 (_map_grad_kernel, rgbd)",
                       "dd rtol 1e-3 + 1e-4 x column max; "
                       "sums rtol 1e-4 + 1e-4"),
+    "map_grad_madd": (f"{REPLACES}:636 (_map_grad_kernel, with_madd, "
+                      "madd_ref :655-677)",
+                      "as map_grad; dd and sums bit-identical to map_grad "
+                      "on the rows pre-masked"),
+    "map_grad_madd_rgbd": (f"{REPLACES}:636 (_map_grad_kernel, with_madd, "
+                           "rgbd)",
+                           "as map_grad_rgbd; dd and sums bit-identical to "
+                           "map_grad_rgbd on the rows pre-masked"),
 }
 
 KERNELS.update({
@@ -227,6 +249,7 @@ KERNELS.update({
 TRACK_KERNELS = ("fwd", "fwd_counts", "fo_grad", "fo_grad_rgbd", "jvp8")
 MAP_KERNELS = ("fwd", "fwd_counts", "bwd", "map_grad", "map_grad_rgbd")
 MACRO_KERNELS = ("macro_fwd", "macro_bwd", "compact_fwd", "compact_bwd")
+AB_MAP_KERNELS = ("map_grad_madd", "map_grad_madd_rgbd")
 
 
 def kernel_source(kind):
@@ -577,14 +600,19 @@ def l1_cotangent(torch, outs, gt, W, H):
                       torch.zeros_like(g_col)], dim=-1).contiguous()
 
 
-def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
+def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
+                         with_madd=True):
     """The mapping path's kernels against their plain versions: the blend
     VJP over the whole frame with a real colour-refinement cotangent (L1
     of the render against the frame, on a grey background so that the acc
     column carries one too), and the fused mapping step over 320 tiles
     (tile_frac 0.25) and all 1280, mono and RGB-D, plus RGB-D at the
     320x240 / k_fine 256 shapes of configs/synthetic/rgbd.yaml (80 of its
-    320 tiles)."""
+    320 tiles). ``with_madd``: also the step's madd variant (io_batch: all
+    tiles, raw rows of the margin lists, whose empty slots hold Gaussian
+    0's row) at both shapes, mono and RGB-D, against its plain version
+    and bit for bit against the step without madd on the rows
+    pre-masked."""
     from monogs_tpu_torch.render import Intrinsics
     from monogs_tpu_torch.render import blend_lists as bl
     from monogs_tpu_torch.render import renderer as rr
@@ -619,7 +647,7 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
     del dd, want, outs, g_outs
 
     # 2. fused mapping step
-    def map_grad_case(name, intr_c, cfg_c, n_sub, rgbd):
+    def map_grad_case(name, intr_c, cfg_c, n_sub, rgbd, madd=False):
         cfg_c = cfg_c._replace(with_n_touched=False)
         Wc, Hc = intr_c.width, intr_c.height
         pm = rr._tile_pmat(cfg_c, dev)
@@ -630,9 +658,17 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
             g = torch.Generator(device=dev).manual_seed(2)
             ts = torch.randperm(txf.shape[0], generator=g,
                                 device=dev)[:n_sub]
-            dm = rr.tile_rows(scene, pose, intr_c, cfg_c,
-                              TileLists(idx=lists.idx[ts],
-                                        vld=lists.vld[ts]))
+            sub = TileLists(idx=lists.idx[ts], vld=lists.vld[ts])
+            dm = rr.tile_rows(scene, pose, intr_c, cfg_c, sub)
+            if madd:
+                prep = rr._preprocess_rows(scene, sub.idx.reshape(-1), pose,
+                                           intr_c, cfg_c)
+                raw = rr._pack(prep).reshape(dm.shape).contiguous()
+                vld = sub.vld & prep.valid.reshape(sub.vld.shape)
+                madd_t = torch.where(vld, 0.0, -1e30).to(torch.float32)
+                check(not bool(vld.all()), f"{name}: no masked row")
+                check(bool(torch.equal(rr._masked_rows(raw, vld), dm)),
+                      f"{name}: raw rows do not mask to the rows")
             if (Wc, Hc) == (W, H):
                 img, dep, msk = (frame.gt_image, frame.gt_depth,
                                  frame.mapping_mask)
@@ -651,16 +687,27 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
                 torch.tensor(1.0, device=dev), torch.tensor(0.0, device=dev),
                 Wc, Hc, True, 0.95 if rgbd else 1.0, 1e-8)
         kw = dict(gtd_t=gtd_t, px_frac=n_sub / txf.shape[0])
+        if madd:
+            want = bl.map_grad_lists(*args, **kw)
+            args = (raw,) + args[1:]
+            kw["madd"] = madd_t
         got, sums = bl.map_grad_lists(*args, **kw)
         pdd, psums = bl.map_grad_lists_plain(*args, **kw)
         err, ok = per_column_err(torch, got, pdd, 1e-4)
         e_s = torch.abs(sums - psums)
         ok = ok and bool(torch.all(e_s <= 1e-4 * torch.abs(psums) + 1e-4))
         check(float(psums[:, 0].sum()) > 0, f"{name}: zero residual")
+        if madd:
+            check(bool(torch.equal(got, want[0]))
+                  and bool(torch.equal(sums, want[1])),
+                  f"{name}: not bit-identical to the step on the rows "
+                  f"pre-masked (dd {float(torch.abs(got - want[0]).max())}"
+                  f", sums {float(torch.abs(sums - want[1]).max())})")
         record(name, lambda: bl.map_grad_lists(*args, **kw),
                lambda: bl.map_grad_lists_plain(*args, **kw),
                max(err, float(e_s.max())), ok,
-               nbytes(dm, txf[ts], tyf[ts], pm, gt_t, mask_t, gtd_t) + 8,
+               nbytes(args[0], txf[ts], tyf[ts], pm, gt_t, mask_t, gtd_t,
+                      kw.get("madd")) + 8,
                nbytes(got, sums),
                pair_counts(torch, bl, dm, txf[ts], tyf[ts], pm, Wc, Hc))
 
@@ -676,6 +723,12 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp):
     n_fine_s = rr._tile_origins(intr_s, cfg_s, dev)[0].shape[0]
     map_grad_case("map_grad_rgbd@320x240_kf256", intr_s, cfg_s,
                   max(8, int(n_fine_s * 0.25) // 8 * 8), True)
+    if with_madd:
+        for rgbd in (False, True):
+            base = "map_grad_madd_rgbd" if rgbd else "map_grad_madd"
+            map_grad_case(base, intr, cfg, n_fine, rgbd, madd=True)
+            map_grad_case(f"{base}@320x240_kf256", intr_s, cfg_s, n_fine_s,
+                          rgbd, madd=True)
     return entries
 
 
@@ -917,7 +970,8 @@ def profile_frame(torch, scene, frames, poses, intr, cfg, tcfg):
 
 
 LIST_BLEND = ("::fwd_kernel<", "::fo_grad_kernel<", "::jvp8_kernel(",
-              "::map_grad_kernel<", "::bwd_kernel(")
+              "::map_grad_kernel<", "::map_grad_madd_kernel<",
+              "::bwd_kernel(")
 MACRO_BLEND = ("macro_fwd_kernel", "macro_bwd_kernel", "sum_fine_tiles")
 
 
@@ -1413,6 +1467,181 @@ def macro_path(torch, intr, cfg, scene, frames, poses):
     return out, launches
 
 
+# ------------------------------------------------------- A/B-knob paths
+
+AB_ITERS = 5            # BA iterations of each mapping knob
+AB_FRAMES = 3           # tracked frames of each tracking branch
+
+
+def map_diff(torch, a, b):
+    """Largest difference and share of entries beyond 1e-4 of each map
+    parameter, the poses and the exposures of two map_iters results."""
+    out = {}
+    for k, x, y in zip(a.m.params._fields, a.m.params, b.m.params):
+        d = torch.abs(x - y)
+        out[k] = dict(max=float(d.max()),
+                      share_over_1e4=float((d > 1e-4).float().mean()))
+    for k in ("T", "ea", "eb"):
+        out[k] = dict(max=float(torch.abs(getattr(a.cams, k)
+                                          - getattr(b.cams, k)).max()))
+    return out
+
+
+def ab_mapping_path(torch, intr, cfg, scene, frames, poses):
+    """The mapping A/B knobs on the bench window (the mapping path's: 640x480,
+    a 2^17 map, B 10, k_fine 96): AB_ITERS BA iterations each with io_batch
+    (the madd kernel), scatter_segsum, gather_first at tile_frac 0.25 and
+    batch_render, each from the same state, held against the default
+    branch's result after as many iterations from that state (fused at
+    tile_frac 1.0, or 0.25 with the same generator seed for gather_first;
+    unfused view by view for batch_render):
+    ms per iteration by the delta method ((t(AB_ITERS) - t(1)) /
+    (AB_ITERS - 1)), launches, host syncs per iteration and peak memory;
+    then 2 RGB-D io_batch iterations. index_add_ on the card adds with
+    atomics, so the knobs differ from the default by float32
+    reassociation, and Adam's first steps move every parameter with a
+    nonzero gradient by its learning rate times the gradient's sign: a
+    gradient near 0 whose sign the rounding flips moves its entry by up to
+    two steps. Held: at most 1 % of each parameter's entries beyond 1e-4,
+    poses and exposures within 1e-4, and the window's L1 within 1e-3
+    relative."""
+    from monogs_tpu_torch.models import gaussian_map as gm
+    from monogs_tpu_torch.slam import mapping as mp
+
+    dev = scene.xyz.device
+    hyper = gm.MapHyper()
+    mc = mp.MapConfig(monocular=True, window_size=8, pose_window=5)
+    m0, cams = map_window(torch, scene, frames, poses, views=MAP_VIEWS)
+
+    def run_map(n, mcfg, seed=0):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.synchronize()
+        before = all_launches()
+        t0 = time.perf_counter()
+        r = mp.map_iters(m0, cams, n, 100, gen, intr, cfg, mcfg, hyper)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        now = all_launches()
+        return secs, r, {k: now[k] - before[k] for k in now
+                         if now[k] != before[k]}
+
+    knobs = {
+        "io_batch": (mc._replace(io_batch=True), mc),
+        "scatter_segsum": (mc._replace(scatter_segsum=True), mc),
+        "gather_first": (mc._replace(gather_first=True, tile_frac=0.25),
+                         mc._replace(tile_frac=0.25)),
+        # the unfused branch renders per view without it; the fused step
+        # takes sign(0) = 0 where the autograd L1 takes jnp.abs's slope 1,
+        # which moves the exposure offsets' gradient
+        "batch_render": (mc._replace(batch_render=True, fused_grad=False),
+                         mc._replace(fused_grad=False)),
+    }
+    refs = {}
+    run_map(1, knobs["io_batch"][0])           # warm-up
+    reset_launches()
+    out = {}
+    for name, (mcfg, ref_cfg) in knobs.items():
+        if ref_cfg not in refs:
+            refs[ref_cfg] = run_map(AB_ITERS, ref_cfg)[1]
+        torch.cuda.reset_peak_memory_stats()
+        t_1, _, _ = run_map(1, mcfg)
+        t_n, r, n_l = run_map(AB_ITERS, mcfg)
+        peak = torch.cuda.max_memory_allocated()
+        check_finite_map(torch, r.m, r.cams, name)
+        syncs = {n: count_syncs(torch, lambda n=n: run_map(n, mcfg))[0]
+                 for n in (1, 2)}
+        ref = refs[ref_cfg]
+        diff = map_diff(torch, r, ref)
+        l1, l1_ref = (window_l1(torch, x.m, x.cams, intr, cfg)
+                      for x in (r, ref))
+        out[name] = dict(ms_per_iter=1000.0 * (t_n - t_1) / (AB_ITERS - 1),
+                         s_1=t_1, s_n=t_n, launches=n_l,
+                         host_syncs_per_iter=syncs[2] - syncs[1],
+                         peak_mem_bytes=peak, l1_after=l1,
+                         l1_default=l1_ref, diff_vs_default=diff)
+        log(f"ab mapping {name}: {json.dumps(out[name])}")
+        for k, v in diff.items():
+            if k in ("T", "ea", "eb"):
+                check(v["max"] <= 1e-4, f"{name}: {k} differs from the "
+                      f"default branch by {v['max']:.3e}")
+            else:
+                check(v["share_over_1e4"] <= 0.01,
+                      f"{name}: {k} differs from the default branch: {v}")
+        check(abs(l1 - l1_ref) <= 1e-3 * l1_ref,
+              f"{name}: window L1 {l1:.6f} against {l1_ref:.6f}")
+    want = {"io_batch": {"map_grad_madd": AB_ITERS * MAP_VIEWS},
+            "scatter_segsum": {"map_grad": AB_ITERS * MAP_VIEWS},
+            "gather_first": {"map_grad": AB_ITERS * MAP_VIEWS},
+            "batch_render": {"fwd": AB_ITERS, "bwd": AB_ITERS}}
+    for name, w in want.items():
+        got = {k: v for k, v in out[name]["launches"].items()
+               if k != "fwd_counts"}
+        check(got == w, f"{name}: launches {out[name]['launches']}, want "
+              f"{w} besides the visibility pass's fwd_counts")
+    t_d, rd, n_d = run_map(2, mc._replace(io_batch=True, monocular=False))
+    check_finite_map(torch, rd.m, rd.cams, "io_batch RGB-D")
+    check(n_d.get("map_grad_madd_rgbd") == 2 * MAP_VIEWS,
+          f"io_batch RGB-D launches {n_d}")
+    out["io_batch_rgbd"] = dict(s_2=t_d, launches=n_d)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    for k in AB_MAP_KERNELS:
+        check(launches[k] > 0,
+              f"kernel {k} was not launched on the A/B mapping path")
+    return out, launches
+
+
+def ab_tracking_path(torch, intr, cfg, tcfg, scene, frames, poses):
+    """AB_FRAMES mono frames of the chain on each tracking branch the
+    shipped configuration does not take: the unfused first order over the
+    frozen lists' tile subset (fo_fused False), "xla" with bin_margin 0
+    (full-frame first order, linearised second order) and "pallas" with
+    bin_margin 0 (first order through the macro-list kernels only), each
+    seeded with the previous tracked pose: pose error against holding the
+    previous pose, ms per frame, host syncs and peak memory. The branches
+    with a second order must end below half of holding the previous pose,
+    as the shipped chain; the first-order-only one must lower each
+    frame's L1."""
+    branches = {
+        "fo_unfused": (cfg, tcfg._replace(fo_fused=False)),
+        "xla_margin0": (cfg._replace(backend="xla"),
+                        tcfg._replace(bin_margin=0.0)),
+        "pallas_margin0_fo": (cfg._replace(backend="pallas"),
+                              tcfg._replace(bin_margin=0.0, so_max_iter=0)),
+    }
+    f, p = frames[:AB_FRAMES + 2], poses[:AB_FRAMES + 2]
+    out = {}
+    for name, (cfg_b, tcfg_b) in branches.items():
+        track_chain(torch, scene, f[:3], p[:3], intr, cfg_b, tcfg_b, 1000)
+        torch.cuda.reset_peak_memory_stats()
+        before = all_launches()
+        secs, outs = track_chain(torch, scene, f, p, intr, cfg_b, tcfg_b, 0)
+        now = all_launches()
+        m = chain_metrics(torch, outs, p, secs)
+        m["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        m["launches"] = {k: now[k] - before[k] for k in now
+                         if now[k] != before[k]}
+        out[name] = m
+        log(f"ab tracking {name}: {json.dumps(m)}")
+        if tcfg_b.so_max_iter:
+            check(m["err_mm_mean"] < 0.5 * m["hold_prev_err_mm_mean"],
+                  f"{name} tracking: mean error {m['err_mm_mean']:.3f} mm "
+                  f"is not below half of holding the previous pose "
+                  f"({m['hold_prev_err_mm_mean']:.3f} mm)")
+        else:
+            # first-order Adam alone, with the shipped rates and plateau
+            # exits, does not track at this pace (PERF.md): it must lower
+            # each frame's L1
+            check(all(float(o.last_l1) < float(o.fo_losses[0]) for o in outs),
+                  f"{name}: a frame's first order did not lower its L1")
+    check(out["fo_unfused"]["launches"].get("bwd", 0) > 0
+          and "fo_grad" not in out["fo_unfused"]["launches"],
+          f"fo_unfused launches {out['fo_unfused']['launches']}")
+    check(out["pallas_margin0_fo"]["launches"].get("macro_bwd", 0) > 0,
+          f"pallas launches {out['pallas_margin0_fo']['launches']}")
+    return out
+
+
 def run(scene_seed):
     import torch
 
@@ -1462,10 +1691,15 @@ def run(scene_seed):
                                   scene, frames, chain_poses)
     macro, macro_launches = timed("macro_path", macro_path, intr, cfg, scene,
                                   frames, chain_poses)
+    ab_map, ab_launches = timed("ab_mapping_path", ab_mapping_path, intr,
+                                cfg, scene, frames, chain_poses)
+    ab_track = timed("ab_tracking_path", ab_tracking_path, intr, cfg, tcfg,
+                     scene, frames, chain_poses)
     for name, e in entries.items():
         kind = name.split("@")[0]
         e["launches"] = (summary["launches"][kind] if kind in TRACK_KERNELS
                          else macro_launches[kind] if kind in MACRO_KERNELS
+                         else ab_launches[kind] if kind in AB_MAP_KERNELS
                          else map_launches[kind])
     summary["build_s"] = build_s
     summary["phase_s"] = phase_s
@@ -1478,6 +1712,11 @@ def run(scene_seed):
     print(json.dumps({"main_path": summary}), flush=True)
     print(json.dumps({"mapping_path": mapping}), flush=True)
     print(json.dumps({"macro_path": macro}), flush=True)
+    ab_map["launches"] = ab_launches
+    ab_map["device"] = smi
+    ab_track["device"] = smi
+    print(json.dumps({"ab_mapping_path": ab_map}), flush=True)
+    print(json.dumps({"ab_tracking_path": ab_track}), flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

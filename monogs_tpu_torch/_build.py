@@ -92,7 +92,7 @@ _SIGNATURES = {
         "blend_fwd": [_VP] * 6 + [_I] * 5 + [_VP],
         "blend_fo_grad": [_VP] * 11 + [_I] * 6 + [_F] * 4 + [_VP],
         "blend_jvp8": [_VP] * 7 + [_I] * 5 + [_VP],
-        "blend_map_grad": [_VP] * 10 + [_I] * 6 + [_F] * 3 + [_VP],
+        "blend_map_grad": [_VP] * 11 + [_I] * 6 + [_F] * 3 + [_VP],
         "blend_bwd": [_VP] * 6 + [_I] * 5 + [_VP],
     },
     "blend_macros": {

@@ -74,13 +74,26 @@ __device__ __forceinline__ void store8(float* out, const float* v5) {
 struct OwnRows {
   static constexpr bool kContiguous = true;
   static constexpr bool kStopEarly = false;
+  static constexpr bool kMadd = false;
   const float* dt;
+  __device__ __forceinline__ int operator()(int k) const { return k; }
+};
+
+// A raw row -1e30 + LOGO rounds to -1e30 in float32 (LOGO >= log(1e-12)),
+// so a masked row stages bit for bit as the caller's pre-masked copy would.
+struct MaddRows {
+  static constexpr bool kContiguous = true;
+  static constexpr bool kStopEarly = false;
+  static constexpr bool kMadd = true;
+  const float* dt;
+  const float* madd_t;  // [kf]
   __device__ __forceinline__ int operator()(int k) const { return k; }
 };
 
 struct IndexedRows {
   static constexpr bool kContiguous = false;
   static constexpr bool kStopEarly = true;
+  static constexpr bool kMadd = false;
   const float* dt;
   const int* ridx;  // shared memory
   __device__ __forceinline__ int operator()(int k) const { return ridx[k]; }
@@ -133,7 +146,14 @@ __device__ __forceinline__ Tile<OwnRows> load_tile(const float* d,
 template <class Rows>
 __device__ __forceinline__ void stage_rows(float* dst, const Tile<Rows>& c,
                                            int k0, int n) {
-  if constexpr (Rows::kContiguous) {
+  if constexpr (Rows::kMadd) {
+    const float* src = c.src.dt + (size_t)k0 * F;
+    for (int i = threadIdx.x; i < n * F; i += blockDim.x) {
+      float v = src[i];
+      if (i % F == LOGO) v += c.src.madd_t[k0 + i / F];
+      dst[i] = v;
+    }
+  } else if constexpr (Rows::kContiguous) {
     stage_span(dst, c.src.dt + (size_t)k0 * F, n * F);
   } else {
     for (int i = threadIdx.x; i < n * F; i += blockDim.x)

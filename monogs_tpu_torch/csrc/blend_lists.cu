@@ -7,7 +7,8 @@
 //   blend_fo_grad             <- _fo_grad_kernel     (fo_grad_lists_pallas)
 //   blend_jvp8                <- _jvp8_kernel        (blend_lists_jvp8)
 //   blend_bwd                 <- _bwd_kernel         (blend_lists_pallas VJP)
-//   blend_map_grad            <- _map_grad_kernel    (map_grad_lists_pallas)
+//   blend_map_grad            <- _map_grad_kernel    (map_grad_lists_pallas;
+//                                with madd, its with_madd variant)
 //
 // Input contract (unchanged from the TPU kernels): d [T, K, 16] packed
 // depth-ordered rows per tile with the column layout of renderer._F (u, v,
@@ -147,18 +148,17 @@ __global__ void fo_grad_kernel(
 // RGB-D needs one reverse chain: the depth term is the output cotangent's
 // depth column. sums: (sum |r_rgb|, sum |r_d|, sum sgn mask col,
 // sum sgn mask, 0, 0, 0, 0); the caller applies the weight and sign(ea) to
-// the exposure sums.
-template <bool RGBD>
-__global__ void map_grad_kernel(
-    const float* __restrict__ d, const float* __restrict__ tx0,
-    const float* __restrict__ ty0, const float* __restrict__ pmat,
-    const float* __restrict__ gt, const float* __restrict__ mask,
-    const float* __restrict__ gtd, const float* __restrict__ sc,
-    float* __restrict__ dd, float* __restrict__ sums, int kf, int width,
-    int height, int use_exposure, float w_rgb, float w_dep, float eps) {
+// the exposure sums. One body for both row sources: the tile's own rows
+// (map_grad_kernel) and raw rows with an additive log-opacity column
+// (map_grad_madd_kernel, the TPU kernel's with_madd variant).
+template <bool RGBD, class Rows>
+__device__ __forceinline__ void map_grad_tile(
+    const Tile<Rows>& c, float* smem, const float* __restrict__ gt,
+    const float* __restrict__ mask, const float* __restrict__ gtd,
+    const float* __restrict__ sc, float* __restrict__ dd,
+    float* __restrict__ sums, int kf, int use_exposure, float w_rgb,
+    float w_dep, float eps) {
   constexpr int NV = RevSpec<RGBD, false>::NV;
-  extern __shared__ float smem[];
-  const auto c = load_tile(d, tx0, ty0, pmat, kf, width, height);
   float* rows = smem;
   float* ck = rows + KC * F;
   float* tex = ck + n_chunks(kf) * c.P;
@@ -197,6 +197,41 @@ __global__ void map_grad_kernel(
   tile_sums<4>(c, part, bsum, sums);
   reverse_blend<RGBD, false>(c, rows, ck, tex, red, kf, kend, n_live, g, 0.f,
                              dd + (size_t)c.t * kf * F, nullptr);
+}
+
+template <bool RGBD>
+__global__ void map_grad_kernel(
+    const float* __restrict__ d, const float* __restrict__ tx0,
+    const float* __restrict__ ty0, const float* __restrict__ pmat,
+    const float* __restrict__ gt, const float* __restrict__ mask,
+    const float* __restrict__ gtd, const float* __restrict__ sc,
+    float* __restrict__ dd, float* __restrict__ sums, int kf, int width,
+    int height, int use_exposure, float w_rgb, float w_dep, float eps) {
+  extern __shared__ float smem[];
+  map_grad_tile<RGBD>(load_tile(d, tx0, ty0, pmat, kf, width, height), smem,
+                      gt, mask, gtd, sc, dd, sums, kf, use_exposure, w_rgb,
+                      w_dep, eps);
+}
+
+// madd [T, kf]: 0 for a valid row, -1e30 for an invalid one, added to the
+// raw row's log-opacity as it is staged (forward and reverse alike), so the
+// caller needs no masked copy of the rows. d(LOGO + madd)/d(LOGO) = 1 and an
+// invalid row blends with w = 0, so dd is the masked rows' cotangent.
+template <bool RGBD>
+__global__ void map_grad_madd_kernel(
+    const float* __restrict__ d, const float* __restrict__ madd,
+    const float* __restrict__ tx0, const float* __restrict__ ty0,
+    const float* __restrict__ pmat, const float* __restrict__ gt,
+    const float* __restrict__ mask, const float* __restrict__ gtd,
+    const float* __restrict__ sc, float* __restrict__ dd,
+    float* __restrict__ sums, int kf, int width, int height,
+    int use_exposure, float w_rgb, float w_dep, float eps) {
+  extern __shared__ float smem[];
+  const int t = blockIdx.x;
+  const MaddRows src{d + (size_t)t * kf * F, madd + (size_t)t * kf};
+  map_grad_tile<RGBD>(make_tile(t, tx0[t], ty0[t], pmat, src, width, height),
+                      smem, gt, mask, gtd, sc, dd, sums, kf, use_exposure,
+                      w_rgb, w_dep, eps);
 }
 
 // ------------------------------------------------------------- blend VJP --
@@ -368,26 +403,41 @@ extern "C" int blend_fo_grad(const float* d, const float* tx0,
   return (int)cudaGetLastError();
 }
 
+// madd: nullable [T, kf]; with it the raw rows d blend through
+// map_grad_madd_kernel.
 extern "C" int blend_map_grad(const float* d, const float* tx0,
                               const float* ty0, const float* pmat,
                               const float* gt, const float* mask,
-                              const float* gtd, const float* sc, float* dd,
-                              float* sums, int n_tiles, int kf, int p,
-                              int width, int height, int use_exposure,
-                              float w_rgb, float w_dep, float eps,
-                              void* stream) {
+                              const float* gtd, const float* madd,
+                              const float* sc, float* dd, float* sums,
+                              int n_tiles, int kf, int p, int width,
+                              int height, int use_exposure, float w_rgb,
+                              float w_dep, float eps, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gtd) {
-    const size_t smem = reverse_smem(kf, p, RevSpec<true, false>::NV);
-    const cudaError_t rc = launch_prepare(map_grad_kernel<true>, smem);
+  const size_t smem = reverse_smem(
+      kf, p, gtd ? RevSpec<true, false>::NV : RevSpec<false, false>::NV);
+  cudaError_t rc;
+  if (madd && gtd) {
+    rc = launch_prepare(map_grad_madd_kernel<true>, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    map_grad_madd_kernel<true><<<n_tiles, p, smem, s>>>(
+        d, madd, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, width,
+        height, use_exposure, w_rgb, w_dep, eps);
+  } else if (madd) {
+    rc = launch_prepare(map_grad_madd_kernel<false>, smem);
+    if (rc != cudaSuccess) return (int)rc;
+    map_grad_madd_kernel<false><<<n_tiles, p, smem, s>>>(
+        d, madd, tx0, ty0, pmat, gt, mask, nullptr, sc, dd, sums, kf, width,
+        height, use_exposure, w_rgb, w_dep, eps);
+  } else if (gtd) {
+    rc = launch_prepare(map_grad_kernel<true>, smem);
     if (rc != cudaSuccess) return (int)rc;
     map_grad_kernel<true><<<n_tiles, p, smem, s>>>(
         d, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, width, height,
         use_exposure, w_rgb, w_dep, eps);
   } else {
-    const size_t smem = reverse_smem(kf, p, RevSpec<false, false>::NV);
-    const cudaError_t rc = launch_prepare(map_grad_kernel<false>, smem);
+    rc = launch_prepare(map_grad_kernel<false>, smem);
     if (rc != cudaSuccess) return (int)rc;
     map_grad_kernel<false><<<n_tiles, p, smem, s>>>(
         d, tx0, ty0, pmat, gt, mask, nullptr, sc, dd, sums, kf, width,

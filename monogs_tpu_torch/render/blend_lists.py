@@ -38,6 +38,13 @@ Kernels (TPU kernel replaced -> bound on the H100 -> design):
   sum(wbar * w) and reduces each row's six conic moments and four colour
   sums deterministically (warp shuffles, then shared memory); no atomics.
   The RGB-D variant carries the depth chain in the same pass.
+- ``map_grad_lists`` <- ``_map_grad_kernel``, and with ``madd`` its
+  ``with_madd`` variant; bound by FP32 operations as ``fo_grad_lists``
+  (29 more per live contributing pair, 33 for RGB-D), one reverse chain
+  even for RGB-D. ``madd`` [T, Kf] (0 valid, -1e30 invalid) is added to
+  each raw row's log-opacity as the rows are staged, in the forward and
+  the checkpointed reverse alike, so the caller makes no masked copy of
+  the rows; 4 bytes per row more than the 64 of a row.
 - ``blend_lists_jvp8`` <- ``_jvp8_kernel``; bound by FP32 operations (26
   per walked pair and 229 more per contributing one for the seven chains;
   about 20 per byte, so the bytes bind nearly as hard). The primal and the
@@ -56,10 +63,12 @@ _U, _V, _CA, _CB, _CC, _OPA, _R0, _G0, _B0, _Z, _RAD, _LOGO = range(12)
 _F = 16
 _NTAN = 6
 
-# launches of each kernel since the last reset (the RGB-D variant of the
-# fused first-order kernel is counted apart from the mono one)
+# launches of each kernel since the last reset (the RGB-D variants of the
+# fused kernels, and the fused mapping kernel with ``madd``, are counted
+# apart)
 LAUNCHES = {"fwd": 0, "fwd_counts": 0, "fo_grad": 0, "fo_grad_rgbd": 0,
-            "jvp8": 0, "bwd": 0, "map_grad": 0, "map_grad_rgbd": 0}
+            "jvp8": 0, "bwd": 0, "map_grad": 0, "map_grad_rgbd": 0,
+            "map_grad_madd": 0, "map_grad_madd_rgbd": 0}
 
 
 def reset_launches():
@@ -244,7 +253,11 @@ def map_grad_weights(width: int, height: int, alpha: float, rgbd: bool,
 
 def map_grad_lists_plain(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
                          height: int, use_exposure: bool, alpha: float,
-                         eps: float, gtd_t=None, px_frac: float = 1.0):
+                         eps: float, gtd_t=None, px_frac: float = 1.0,
+                         madd=None):
+    if madd is not None:
+        d = torch.cat([d[..., :_LOGO], (d[..., _LOGO] + madd)[..., None],
+                       d[..., _LOGO + 1:]], dim=-1)
     f = _forward_plain(d, tx0, ty0, pmat, width, height)
     outs = f["outs"]
     col = outs[..., 0:3]
@@ -457,25 +470,29 @@ def blend_lists_fn(d, tx0, ty0, pmat, width: int, height: int):
 
 def map_grad_lists(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
                    height: int, use_exposure: bool, alpha: float, eps: float,
-                   gtd_t=None, px_frac: float = 1.0):
+                   gtd_t=None, px_frac: float = 1.0, madd=None):
     """Fused mapping loss and gradient over frozen lists.
 
     d: [S, Kf, F]; gt_t/mask_t: [S, P, 3]/[S, P, 1] tiled ground truth
     (and gtd_t [S, P, 1] for RGB-D); ea/eb: 0-d exposure tensors (unused
     without ``use_exposure``); ``alpha`` mixes RGB and depth; ``px_frac``
-    scales the mean normalisers of a tile-subset call. Returns (dd
+    scales the mean normalisers of a tile-subset call; ``madd`` [S, Kf]
+    (0 valid, -1e30 invalid), when given, is added to the log-opacity of
+    the raw rows ``d`` in the kernel. Returns (dd
     [S, Kf, F] = d(loss)/d(d) with the normalisers applied, sums [S, 8] =
     per-tile (sum |r_rgb|, sum |r_d|, sum sgn mask col, sum sgn mask, 0,
     0, 0, 0))."""
     if not _on_cuda(d):
         return map_grad_lists_plain(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb,
                                     width, height, use_exposure, alpha, eps,
-                                    gtd_t, px_frac)
+                                    gtd_t, px_frac, madd)
     n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
     _check("gt_t", gt_t, (n_tiles, p, 3))
     _check("mask_t", mask_t, (n_tiles, p, 1))
     if gtd_t is not None:
         _check("gtd_t", gtd_t, (n_tiles, p, 1))
+    if madd is not None:
+        _check("madd", madd, (n_tiles, kf))
     w_rgb, w_dep = map_grad_weights(width, height, alpha, gtd_t is not None,
                                     px_frac)
     sc = torch.stack([ea, eb]).to(torch.float32)
@@ -484,9 +501,11 @@ def map_grad_lists(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
     rc = _lib().blend_map_grad(
         d.data_ptr(), tx0.data_ptr(), ty0.data_ptr(), pmat.data_ptr(),
         gt_t.data_ptr(), mask_t.data_ptr(),
-        gtd_t.data_ptr() if gtd_t is not None else None, sc.data_ptr(),
+        gtd_t.data_ptr() if gtd_t is not None else None,
+        madd.data_ptr() if madd is not None else None, sc.data_ptr(),
         dd.data_ptr(), sums.data_ptr(), n_tiles, kf, p, width, height,
         int(use_exposure), w_rgb, w_dep, eps, _stream())
     _raise_on(rc, "blend_map_grad")
-    LAUNCHES["map_grad" if gtd_t is None else "map_grad_rgbd"] += 1
+    LAUNCHES["map_grad" + ("_madd" if madd is not None else "")
+             + ("_rgbd" if gtd_t is not None else "")] += 1
     return dd, sums

@@ -3,7 +3,8 @@
 Counterpart of ``monogs_tpu/render/renderer.py``: the binning half
 (``_make_lists``, ``build_tile_lists``, ``refine_fine_lists``,
 ``tile_images``) and the render surface (``render``; ``tile_rows``,
-``render_fo_grad_tiles``, ``render_pose_jvp_tiles``, ``render_map_grad``,
+``render_fo_grad_tiles``, ``render_pose_jvp_tiles``, ``render_pose_jvp``,
+``render_batch``, ``render_tiles``, ``render_map_grad``,
 ``map_grad_from_rows`` over the list kernels; ``render_golden``, the
 sequential test model). Binning is plain PyTorch sorts, as the JAX package
 left it to XLA.
@@ -19,7 +20,8 @@ left it to XLA.
 - otherwise, ``"xla"`` always: the XLA blend, plain PyTorch as the JAX
   package's is XLA code (``_blend``: a [K, 6] x [6, P] log-alpha product per
   tile, the blocked transmittance scan of ``ops/scan.py``), over chunks of
-  ``macro_chunk`` macro tiles under ``torch.utils.checkpoint``; its
+  ``macro_chunk`` macro tiles under ``torch.utils.checkpoint`` when
+  autograd records; its
   ``n_touched`` counts come from the blend's contributing mask.
 
 Binning is not differentiable and runs under ``torch.no_grad``. Indices are
@@ -408,6 +410,17 @@ def _blend(data, vld, tx0, ty0, pmat, bg, pix_ok):
     return color, outs[..., 3], acc, contrib
 
 
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (as ``jax.checkpoint``)
+    where autograd records a graph; without one (``torch.no_grad``, which
+    the forward-mode tangents of tracking's linearised step run under)
+    nothing is rematerialised, and checkpoint has no ``vmap`` rule in
+    every torch release."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _xla_blend(packed, idx, vld_f, intr: Intrinsics, cfg: RenderConfig, bg,
                with_counts: bool):
     """The XLA render path's blend over every fine tile's list (JAX
@@ -434,9 +447,8 @@ def _xla_blend(packed, idx, vld_f, intr: Intrinsics, cfg: RenderConfig, bg,
     n_fine = idx.shape[0]
     ft = cfg.macro_tiles * cfg.macro_tiles
     chunk = cfg.macro_chunk * ft if cfg.macro_chunk else n_fine
-    parts = [checkpoint(blend_tiles, packed, idx[i:i + chunk],
-                        vld_f[i:i + chunk], tx0[i:i + chunk],
-                        ty0[i:i + chunk], use_reentrant=False)
+    parts = [_remat(blend_tiles, packed, idx[i:i + chunk],
+                    vld_f[i:i + chunk], tx0[i:i + chunk], ty0[i:i + chunk])
              for i in range(0, n_fine, chunk)]
     out = [torch.cat(x, 0) for x in zip(*parts)]
     return out if with_counts else out + [None]
@@ -504,6 +516,117 @@ def render(gauss: GaussianArrays, T_cw, intr: Intrinsics, cfg: RenderConfig,
         n_touched = torch.zeros((n + 1,), dtype=torch.int32, device=dev)
         n_touched = n_touched.index_add_(0, orig, cnts.reshape(-1))[:n]
     return result(colors, depths, accs, n_touched)
+
+
+def render_batch(gauss: GaussianArrays, Ts, intr: Intrinsics,
+                 cfg: RenderConfig, lists_b: TileLists, taus=None,
+                 means2d_offsets=None, bg=None):
+    """B views over their frozen lists (idx/vld [B, Tf, Kf]) in one list
+    blend: each view's preprocess and gather, the B Tf tiles' rows stacked
+    into one [B Tf, Kf, F] call of the differentiable list blend (forward
+    kernel, VJP kernel). Differentiable in the map, ``taus`` [B, 6] and
+    ``means2d_offsets`` [B, N, 2]. Returns (image [B, 3, H, W], depth
+    [B, 1, H, W], opacity [B, 1, H, W], radii [B, N]). ``cfg.backend``
+    must be "pallas_lists" (the JAX package's callers render view by view
+    otherwise)."""
+    b = Ts.shape[0]
+    dev = gauss.xyz.device
+    if bg is None:
+        bg = torch.zeros((3,), dtype=torch.float32, device=dev)
+    rows, radii = [], []
+    for v in range(b):
+        T = se3.retract(Ts[v], taus[v]) if taus is not None else Ts[v]
+        prep = preprocess(gauss.xyz, gauss.log_scale, gauss.quat,
+                          gauss.opa_logit, gauss.sh, gauss.active, T, intr,
+                          sh_degree=cfg.sh_degree, near=cfg.near,
+                          means2d_offset=(None if means2d_offsets is None
+                                          else means2d_offsets[v]))
+        idx = lists_b.idx[v]
+        rows.append(_masked_rows(_pack(prep)[idx],
+                                 lists_b.vld[v] & prep.valid[idx]))
+        radii.append(prep.radius)
+    n_fine, kf = lists_b.idx.shape[1:]
+    tx0, ty0 = _tile_origins(intr, cfg, dev)
+    outs = blend_lists_fn(torch.cat(rows).reshape(b * n_fine, kf, _F),
+                          tx0.repeat(b), ty0.repeat(b), _tile_pmat(cfg, dev),
+                          intr.width, intr.height).reshape(b, n_fine, -1, 8)
+    accs = outs[..., 4]
+    colors = outs[..., :3] + (1.0 - accs)[..., None] * bg
+    return (torch.stack([_assemble(x, intr, cfg) for x in colors]),
+            torch.stack([_assemble(x[..., None], intr, cfg)
+                         for x in outs[..., 3]]),
+            torch.stack([_assemble(x[..., None], intr, cfg) for x in accs]),
+            torch.stack(radii))
+
+
+def render_tiles(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+                 cfg: RenderConfig, lists_sub: TileLists, tx0s, ty0s,
+                 tau=None):
+    """Blend only the tile subset of ``lists_sub`` (S tiles at origins
+    tx0s/ty0s), gather-first: preprocess runs on the subset's S Kf rows.
+    On "pallas_lists" the differentiable list blend; on every other
+    backend the XLA blend under ``torch.utils.checkpoint``. Returns
+    (colour [S, P, 3], depth [S, P], acc [S, P]) with a zero background;
+    differentiable in the map and ``tau``."""
+    dev = tx0s.device
+    pmat = _tile_pmat(cfg, dev)
+    W, H = intr.width, intr.height
+    if cfg.backend == "pallas_lists":
+        d = tile_rows(gauss, T_cw, intr, cfg, lists_sub, tau)
+        outs = blend_lists_fn(d, tx0s, ty0s, pmat, W, H)
+        return outs[..., :3], outs[..., 3], outs[..., 4]
+    T_eff = se3.retract(T_cw, tau) if tau is not None else T_cw
+    s_tiles, kf = lists_sub.idx.shape
+    prep = _preprocess_rows(gauss, lists_sub.idx.reshape(-1), T_eff, intr,
+                            cfg)
+    vld = lists_sub.vld & prep.valid.reshape(s_tiles, kf)
+    bg0 = torch.zeros((3,), dtype=torch.float32, device=dev)
+
+    def blend_tiles(d, x0, y0):
+        pix_ok = (x0[:, None] + pmat[3] <= W - 1) & (y0[:, None] + pmat[4]
+                                                     <= H - 1)
+        return _blend(d, vld, x0, y0, pmat, bg0, pix_ok)[:3]
+
+    return _remat(blend_tiles, _pack(prep).reshape(s_tiles, kf, _F), tx0s,
+                  ty0s)
+
+
+def render_pose_jvp(gauss: GaussianArrays, T_cw, intr: Intrinsics,
+                    cfg: RenderConfig, lists: TileLists, bg=None, tsel=None):
+    """Render and its six SE(3) pose-tangent pushforwards through one jvp8
+    kernel launch over the lists (only the tiles ``tsel`` [S] when given;
+    the others come out zero). Returns (image [3, H, W], depth [1, H, W],
+    opacity [1, H, W], image_t [6, 3, H, W], depth_t [6, 1, H, W],
+    opacity_t [6, 1, H, W])."""
+    dev = T_cw.device
+    if bg is None:
+        bg = torch.zeros((3,), dtype=torch.float32, device=dev)
+    tx0, ty0 = _tile_origins(intr, cfg, dev)
+    n_fine = tx0.shape[0]
+    if tsel is not None:
+        lists_sub = TileLists(idx=lists.idx[tsel], vld=lists.vld[tsel])
+        txs, tys = tx0[tsel], ty0[tsel]
+    else:
+        lists_sub, txs, tys = lists, tx0, ty0
+    outs, touts = render_pose_jvp_tiles(gauss, T_cw, intr, cfg, lists_sub,
+                                        txs, tys)
+    if tsel is not None:
+        outs = torch.zeros((n_fine,) + outs.shape[1:], device=dev).index_copy(
+            0, tsel, outs)
+        touts = torch.zeros((n_fine,) + touts.shape[1:],
+                            device=dev).index_copy(0, tsel, touts)
+    acc, acc_t = outs[..., 4], touts[..., 4]                # [Tf, (6,) P]
+    img_t = touts[..., :3] - acc_t[..., None] * bg
+
+    def tangents(x):                                        # [Tf, 6, P, C]
+        return torch.stack([_assemble(x[:, j], intr, cfg) for j in range(6)])
+
+    return (_assemble(outs[..., :3] + (1.0 - acc)[..., None] * bg, intr,
+                      cfg),
+            _assemble(outs[..., 3:4], intr, cfg),
+            _assemble(acc[..., None], intr, cfg),
+            tangents(img_t), tangents(touts[..., 3:4]),
+            tangents(acc_t[..., None]))
 
 
 def tile_rows(gauss: GaussianArrays, T_cw, intr: Intrinsics,
@@ -619,17 +742,53 @@ def render_map_grad(gauss: GaussianArrays, T_cw, intr: Intrinsics,
     ``gt_t``, ``mask_t``, ``gtd_t`` hold S of the Tf tiles, ``txy`` their
     origins, ``px_frac`` = S/Tf unbiases the normalisers).
 
+    ``sortperm`` = (perm, sids) ([Tf Kf] each: the frozen argsort of the
+    flat list ids and the ids in that order) pulls the row cotangents back
+    to the Gaussians by a gather in that order and an ``index_add_`` over
+    the sorted ids, instead of autograd's transpose of the gather: the
+    same adds in another order (full lists only, as in the JAX package).
+    ``gather_first`` gathers the listed rows' parameters before preprocess,
+    so the differentiated pipeline runs over S Kf rows, scatters each
+    leaf's row cotangents back by list id with ``index_add_``, and takes
+    ``radii`` from one full-N preprocess without gradients. Both differ
+    from the default only in the order of float32 additions (and, on the
+    card, ``index_add_``'s atomics).
+
     Returns (loss, g_leaves, g_tau, g_off, g_ea, g_eb, radii) with g_leaves
     the gradients of (xyz, sh, log_scale, quat, opa_logit)."""
     _check_backend(cfg)
-    if sortperm is not None or gather_first:
-        raise NotImplementedError(
-            "render_map_grad sortperm / gather_first: default-off A/B knobs "
-            "of the JAX package that arrive with the mapping A/B-knobs slice")
-    leaves = [x.detach().requires_grad_(True) for x in
-              (gauss.xyz, gauss.sh, gauss.log_scale, gauss.quat,
-               gauss.opa_logit)]
+    full = (gauss.xyz, gauss.sh, gauss.log_scale, gauss.quat,
+            gauss.opa_logit)
     tau = tau.detach().requires_grad_(True)
+    kw = dict(gtd_t=gtd_t, txy=txy, px_frac=px_frac)
+    if gather_first and sortperm is None:
+        s_tiles, kf = lists.idx.shape
+        ids = lists.idx.reshape(-1)
+        leaves = [x[ids].detach().requires_grad_(True) for x in full]
+        off_g = off[ids].detach().requires_grad_(True)
+        with torch.enable_grad():
+            prep = preprocess(leaves[0], leaves[2], leaves[3], leaves[4],
+                              leaves[1], gauss.active[ids],
+                              se3.retract(T_cw, tau), intr,
+                              sh_degree=cfg.sh_degree, near=cfg.near,
+                              means2d_offset=off_g)
+            d = _masked_rows(_pack(prep).reshape(s_tiles, kf, _F),
+                             lists.vld & prep.valid.reshape(s_tiles, kf))
+        loss, dd, g_ea, g_eb = map_grad_from_rows(
+            d.detach(), intr, cfg, gt_t, mask_t, ea, eb, initialization,
+            alpha, **kw)
+        gg = torch.autograd.grad(d, leaves + [tau, off_g], grad_outputs=dd)
+        g_leaves = tuple(torch.zeros_like(x).index_add_(0, ids, g)
+                         for x, g in zip(full, gg[:5]))
+        g_off = torch.zeros_like(off).index_add_(0, ids, gg[6])
+        with torch.no_grad():
+            radii = preprocess(*(full[i] for i in (0, 2, 3, 4, 1)),
+                               gauss.active, se3.retract(T_cw, tau), intr,
+                               sh_degree=cfg.sh_degree,
+                               near=cfg.near).radius
+        return loss, g_leaves, gg[5], g_off, g_ea, g_eb, radii
+
+    leaves = [x.detach().requires_grad_(True) for x in full]
     off = off.detach().requires_grad_(True)
     with torch.enable_grad():
         prep = preprocess(leaves[0], leaves[2], leaves[3], leaves[4],
@@ -637,12 +796,33 @@ def render_map_grad(gauss: GaussianArrays, T_cw, intr: Intrinsics,
                           intr, sh_degree=cfg.sh_degree, near=cfg.near,
                           means2d_offset=off)
         packed = _pack(prep)
-        d = _masked_rows(packed[lists.idx],
-                         lists.vld & prep.valid[lists.idx])
-    loss, dd, g_ea, g_eb = map_grad_from_rows(
-        d.detach(), intr, cfg, gt_t, mask_t, ea, eb, initialization, alpha,
-        gtd_t=gtd_t, txy=txy, px_frac=px_frac)
-    grads = torch.autograd.grad(d, leaves + [tau, off], grad_outputs=dd)
+    vld_f = lists.vld & prep.valid[lists.idx]
+    if sortperm is None:
+        with torch.enable_grad():
+            d = _masked_rows(packed[lists.idx], vld_f)
+        loss, dd, g_ea, g_eb = map_grad_from_rows(
+            d.detach(), intr, cfg, gt_t, mask_t, ea, eb, initialization,
+            alpha, **kw)
+        grads = torch.autograd.grad(d, leaves + [tau, off],
+                                    grad_outputs=dd)
+    else:
+        # the gather and the mask transposed by hand: the log-opacity
+        # cotangent is gated by the mask (the -1e30 branch is constant),
+        # then the rows go back in the frozen order of their ids
+        assert txy is None and px_frac == 1.0, (
+            "sortperm is a permutation of the full lists")
+        perm, sids = sortperm
+        d = _masked_rows(packed.detach()[lists.idx], vld_f)
+        loss, dd, g_ea, g_eb = map_grad_from_rows(
+            d, intr, cfg, gt_t, mask_t, ea, eb, initialization, alpha,
+            gtd_t=gtd_t)
+        logo = torch.where(vld_f, dd[..., _LOGO],
+                           torch.zeros_like(dd[..., _LOGO]))
+        dd = torch.cat([dd[..., :_LOGO], logo[..., None],
+                        dd[..., _LOGO + 1:]], dim=-1).reshape(-1, _F)
+        dpacked = torch.zeros_like(packed).index_add_(0, sids, dd[perm])
+        grads = torch.autograd.grad(packed, leaves + [tau, off],
+                                    grad_outputs=dpacked)
     return (loss, tuple(grads[:5]), grads[5], grads[6], g_ea, g_eb,
             prep.radius.detach())
 
@@ -653,14 +833,12 @@ def map_grad_from_rows(d, intr: Intrinsics, cfg: RenderConfig, gt_t, mask_t,
                        px_frac: float = 1.0):
     """The kernel and loss half of ``render_map_grad``: one map_grad kernel
     launch over pre-gathered rows d [S, Kf, F] -> (loss, dL/dd, g_ea,
-    g_eb). ``txy`` overrides the tile origins of a tile-subset call."""
+    g_eb). ``txy`` overrides the tile origins of a tile-subset call.
+    ``madd`` [S, Kf] (0 valid, -1e30 invalid; ``MapConfig.io_batch``)
+    masks the log-opacity of the raw rows ``d`` in the kernel, in place of
+    a masked copy of the rows."""
     from ..ops.losses import EXPOSURE_EPS
 
-    if madd is not None:
-        raise NotImplementedError(
-            "map_grad_from_rows madd (the in-kernel validity mask of the "
-            "batched-IO and gauss-parallel paths) arrives with the parallel "
-            "slice")
     dev = d.device
     tx0, ty0 = txy if txy is not None else _tile_origins(intr, cfg, dev)
     use_exposure = not initialization
@@ -668,7 +846,7 @@ def map_grad_from_rows(d, intr: Intrinsics, cfg: RenderConfig, gt_t, mask_t,
     dd, sums = map_grad_lists(
         d, tx0, ty0, _tile_pmat(cfg, dev), gt_t, mask_t, ea, eb, intr.width,
         intr.height, use_exposure, alpha if rgbd else 1.0, EXPOSURE_EPS,
-        gtd_t=gtd_t, px_frac=px_frac)
+        gtd_t=gtd_t, px_frac=px_frac, madd=madd)
     w_rgb, w_dep = map_grad_weights(intr.width, intr.height, alpha, rgbd,
                                     px_frac)
     loss = w_rgb * torch.sum(sums[:, 0])

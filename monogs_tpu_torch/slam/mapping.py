@@ -6,13 +6,23 @@ the JAX package's two branches:
 - fused (``bin_margin > 0``, ``fused_grad`` and ``backend="pallas_lists"``,
   the shipped configuration, ``bench.py::bench_mapping``): frozen per-view
   margin tile lists and one fused map_grad kernel per view per iteration
-  over all tiles or a fresh random tile subset (``tile_frac < 1``);
+  over all tiles or a fresh random tile subset (``tile_frac < 1``). Its
+  A/B knobs: ``io_batch`` (all B views preprocessed in one graph, one flat
+  gather at view offsets, the kernel's in-kernel validity mask ``madd``
+  on the raw rows, one flat ``index_add_`` of the row cotangents and one
+  pull-back; no tile subsets), ``scatter_segsum`` (the row cotangents go
+  back through a frozen argsort of each view's list ids, rebuilt with the
+  lists; no tile subsets) and ``gather_first`` (preprocess over the
+  listed rows only, per-leaf ``index_add_``);
 - unfused (otherwise): per view, the mapping loss of a differentiable
   ``render`` and its gradients by autograd, the isotropic regulariser
   inside the loss. With ``bin_margin == 0`` every render bins its view
   anew and blends through ``cfg.backend`` (the macro-list kernels on
   ``"pallas"`` / ``"pallas_compact"``); with frozen lists it blends them
-  through the list kernels (``"pallas_lists"``) or the XLA blend.
+  through the list kernels (``"pallas_lists"``) or the XLA blend. With
+  ``batch_render`` over frozen lists on ``"pallas_lists"`` the B views
+  blend in one list-blend call (``render_batch``) and the per-view losses
+  are summed under one autograd graph.
 
 Both cover mono and RGB-D, ``initialization``, the window pose/exposure
 Adam with retraction, densify/prune and the opacity resets on their
@@ -36,9 +46,8 @@ noise of a densify; per colour-refinement iteration, the view.
 ``MapDraws`` and ``views`` replace them with given values, so a test can
 replay the JAX package's ``jax.random`` keys.
 
-The A/B knobs ``batch_render``, ``io_batch``, ``scatter_segsum`` and
-``gather_first``, where they would take effect, and ``axis_name`` raise
-``NotImplementedError`` and name the slice that brings them.
+``axis_name`` (the view-sharded program) raises ``NotImplementedError``
+and names the slice that brings it.
 """
 
 from __future__ import annotations
@@ -51,9 +60,11 @@ from ..models import gaussian_map as gm
 from ..ops import losses, se3
 from ..ops.image import ssim as ssim_fn
 from ..render.camera import Intrinsics
+from ..render.primitives import preprocess
 from ..render.renderer import (
-    GaussianArrays, RenderConfig, TileLists, _check_backend, _tile_origins,
-    build_tile_lists, render, render_map_grad, tile_images,
+    _F, GaussianArrays, RenderConfig, TileLists, _check_backend, _pack,
+    _tile_origins, build_tile_lists, map_grad_from_rows, render,
+    render_batch, render_map_grad, tile_images,
 )
 
 
@@ -153,9 +164,6 @@ class MapResult(NamedTuple):
     kf_adam: tuple            # (m [B, 8], v [B, 8], step) for the next call
 
 
-_AB_SLICE = "the mapping A/B-knobs slice"
-
-
 def _fused(cfg: RenderConfig, mcfg: MapConfig) -> bool:
     """Whether map_iters takes the fused branch (JAX mapping.py:331-336)."""
     return (mcfg.bin_margin > 0 and mcfg.fused_grad
@@ -167,18 +175,6 @@ def _check_supported(cfg: RenderConfig, mcfg: MapConfig, axis_name):
         raise NotImplementedError(
             "axis_name (the view-sharded mapping program) arrives with the "
             "parallel slice")
-    fused = _fused(cfg, mcfg)
-    # each knob only where the JAX package would take it
-    for knob, on in (("io_batch", fused and mcfg.io_batch),
-                     ("scatter_segsum", fused and mcfg.scatter_segsum),
-                     ("gather_first", fused and mcfg.gather_first),
-                     ("batch_render", not fused and mcfg.batch_render
-                      and mcfg.bin_margin > 0
-                      and cfg.backend == "pallas_lists")):
-        if on:
-            raise NotImplementedError(
-                f"MapConfig {knob}: a default-off A/B knob of the JAX "
-                f"package; it arrives with {_AB_SLICE}")
 
 
 def _draw(seq: Sequence, i: int):
@@ -235,6 +231,109 @@ def _view_loss_grads(gauss: GaussianArrays, cams: CamBatch, v: int, T, ea,
             grads[8], radii.detach())
 
 
+def _batch_render_grads(gauss: GaussianArrays, cams: CamBatch, T, ea, eb,
+                        intr: Intrinsics, cfg: RenderConfig, mcfg: MapConfig,
+                        initialization: bool, lists):
+    """The unfused branch with ``batch_render`` (JAX ``_batch_loss``'s
+    render_batch branch): the B views' lists in one list-blend call, the
+    per-view mapping losses (zero for an invalid view) summed, and the
+    gradients of the sum by autograd. Returns (g_leaves summed over the
+    views, [(g_tau, g_off, g_ea, g_eb, radii)] per view)."""
+    b, n, dev = T.shape[0], gauss.xyz.shape[0], gauss.xyz.device
+    leaves = [x.detach().requires_grad_(True) for x in
+              (gauss.xyz, gauss.sh, gauss.log_scale, gauss.quat,
+               gauss.opa_logit)]
+    extra = [torch.zeros((b, 6), device=dev).requires_grad_(True),
+             torch.zeros((b, n, 2), device=dev).requires_grad_(True),
+             ea.detach().requires_grad_(True),
+             eb.detach().requires_grad_(True)]
+    lists_b = TileLists(idx=torch.stack([x.idx for x in lists]),
+                        vld=torch.stack([x.vld for x in lists]))
+    with torch.enable_grad():
+        image, depth, _, radii = render_batch(
+            GaussianArrays(*leaves, active=gauss.active), T, intr, cfg,
+            lists_b, taus=extra[0], means2d_offsets=extra[1])
+        per_view = []
+        for v in range(b):
+            if mcfg.monocular:
+                loss = losses.mapping_loss_rgb(
+                    image[v], cams.gt_image[v], cams.mapping_mask[v],
+                    extra[2][v], extra[3][v], initialization=initialization)
+            else:
+                loss = losses.mapping_loss_rgbd(
+                    image[v], depth[v], cams.gt_image[v], cams.gt_depth[v],
+                    cams.mapping_mask[v], extra[2][v], extra[3][v],
+                    alpha=mcfg.alpha, initialization=initialization)
+            per_view.append(torch.where(cams.valid[v], loss,
+                                        torch.zeros_like(loss)))
+        total = torch.stack(per_view).sum()
+    xs = leaves + extra
+    grads = torch.autograd.grad(total, xs, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, xs)]
+    radii = radii.detach()
+    return grads[:5], [(grads[5][v], grads[6][v], grads[7][v], grads[8][v],
+                        radii[v]) for v in range(b)]
+
+
+def _io_batch_grads(gauss: GaussianArrays, cams: CamBatch, T, ea, eb,
+                    intr: Intrinsics, cfg: RenderConfig, mcfg: MapConfig,
+                    initialization: bool, lists, gt_tb, mask_tb, gtd_tb):
+    """The fused branch with ``io_batch`` (JAX mapping.py:405-495): every
+    view's preprocess and pack in one autograd graph ([B, N, F]), one flat
+    gather of the raw rows at view offsets, the validity mask as ``madd``,
+    one map_grad kernel per view on the raw rows, one flat ``index_add_``
+    of the row cotangents (an invalid view's zeroed) and one pull-back.
+    Returns (g_leaves, [(g_tau, g_off, g_ea, g_eb, radii)] per view)."""
+    b, n, dev = T.shape[0], gauss.xyz.shape[0], gauss.xyz.device
+    leaves = [x.detach().requires_grad_(True) for x in
+              (gauss.xyz, gauss.sh, gauss.log_scale, gauss.quat,
+               gauss.opa_logit)]
+    taus = torch.zeros((b, 6), device=dev).requires_grad_(True)
+    offs = torch.zeros((b, n, 2), device=dev).requires_grad_(True)
+    with torch.enable_grad():
+        preps = [preprocess(leaves[0], leaves[2], leaves[3], leaves[4],
+                            leaves[1], gauss.active,
+                            se3.retract(T[v], taus[v]), intr,
+                            sh_degree=cfg.sh_degree, near=cfg.near,
+                            means2d_offset=offs[v]) for v in range(b)]
+        packed_b = torch.stack([_pack(p) for p in preps])       # [B, N, F]
+    valid_b = torch.stack([p.valid for p in preps])
+    l_idx = torch.stack([x.idx for x in lists])                 # [B, Tf, Kf]
+    l_vld = torch.stack([x.vld for x in lists])
+    gidx = (l_idx.reshape(b, -1)
+            + (torch.arange(b, device=dev) * n)[:, None]).reshape(-1)
+    d0 = packed_b.detach().reshape(b * n, _F)[gidx].reshape(
+        l_idx.shape + (_F,))
+    vld_b = l_vld & valid_b.reshape(-1)[gidx].reshape(l_idx.shape)
+    madd_b = torch.where(vld_b, 0.0, -1e30).to(torch.float32)
+    outs = [map_grad_from_rows(
+        d0[v], intr, cfg, gt_tb[v], mask_tb[v], ea[v], eb[v],
+        initialization, mcfg.alpha,
+        gtd_t=None if gtd_tb is None else gtd_tb[v], madd=madd_b[v])
+        for v in range(b)]
+    dd_b = (torch.stack([o[1] for o in outs])
+            * cams.valid.to(torch.float32)[:, None, None, None])
+    dpacked = torch.zeros((b * n, _F), device=dev).index_add_(
+        0, gidx, dd_b.reshape(-1, _F)).reshape(b, n, _F)
+    grads = torch.autograd.grad(packed_b, leaves + [taus, offs],
+                                grad_outputs=dpacked)
+    return list(grads[:5]), [
+        (grads[5][v], grads[6][v], outs[v][2], outs[v][3],
+         preps[v].radius.detach()) for v in range(b)]
+
+
+def _sort_lists(lists):
+    """Per view, the frozen argsort of the flat list ids and the ids in
+    that order (``scatter_segsum``; paid once per rebuild)."""
+    out = []
+    for x in lists:
+        flat = x.idx.reshape(-1)
+        perm = torch.argsort(flat, stable=True)
+        out.append((perm, flat[perm]))
+    return out
+
+
 def _build_lists(m: gm.GaussianMap, Ts, intr, cfg, margin):
     gauss = m.render_view()
     return [build_tile_lists(gauss, T, intr, cfg, margin=margin) for T in Ts]
@@ -270,6 +369,10 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
     valid_f = cams.valid.to(torch.float32)
     use_lists = mcfg.bin_margin > 0
     fused = _fused(cfg, mcfg)
+    io_batch = fused and mcfg.io_batch
+    use_segsum = fused and mcfg.scatter_segsum and not io_batch
+    batch = (not fused and use_lists and mcfg.batch_render
+             and cfg.backend == "pallas_lists")
 
     def tiles(imgs):
         return [tile_images(im, intr, cfg_iter) for im in imgs]
@@ -280,14 +383,17 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
         gtd_tb = None if mcfg.monocular else tiles(cams.gt_depth)
     tx0f, ty0f = _tile_origins(intr, cfg_iter, dev)
     n_fine = tx0f.shape[0]
-    # tile subsets ride the fused branch only
-    use_sub = fused and mcfg.tile_frac < 1.0
+    # tile subsets ride the plain fused branch only: the frozen
+    # permutation and io_batch's flat gather index the full lists
+    use_sub = (fused and mcfg.tile_frac < 1.0 and not mcfg.scatter_segsum
+               and not mcfg.io_batch)
     # a multiple of 8 tiles, as the JAX package keeps it; it sets px_frac
     n_sub = max(8, int(n_fine * mcfg.tile_frac) // 8 * 8)
     px_frac = n_sub / n_fine if use_sub else 1.0
 
     lists = (_build_lists(m, cams.T, intr, cfg_iter, mcfg.bin_margin)
              if use_lists else [None] * b)
+    sortperm = _sort_lists(lists) if use_segsum else [None] * b
     kam, kav, kat = kf_adam if kf_adam is not None else new_kf_adam(b, dev)
     T, ea, eb = cams.T, cams.ea, cams.eb
     tau0 = torch.zeros(6, dtype=torch.float32, device=dev)
@@ -311,31 +417,48 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
         denom = torch.zeros_like(accum)
         radii_d = torch.zeros_like(accum)
         visible_any = torch.zeros(n, dtype=torch.bool, device=dev)
-        for v in range(b):
-            if not fused:
-                _, gl, gt_v, go_v, gea_v, geb_v, radii_v = _view_loss_grads(
-                    gauss, cams, v, T[v], ea[v], eb[v], intr, cfg_iter, mcfg,
-                    initialization, lists[v])
-            else:
-                li, lv = lists[v].idx, lists[v].vld
-                gt_t, mask_t = gt_tb[v], mask_tb[v]
-                gtd_t = None if gtd_tb is None else gtd_tb[v]
-                txy = None
-                if use_sub:
-                    ts = tsel_b[v]
-                    li, lv = li[ts], lv[ts]
-                    gt_t, mask_t = gt_t[ts], mask_t[ts]
-                    if gtd_t is not None:
-                        gtd_t = gtd_t[ts]
-                    txy = (tx0f[ts], ty0f[ts])
-                _, gl, gt_v, go_v, gea_v, geb_v, radii_v = render_map_grad(
-                    gauss, T[v], intr, cfg_iter, TileLists(idx=li, vld=lv),
-                    gt_t, mask_t, tau0, off0, ea[v], eb[v], initialization,
-                    mcfg.alpha, gtd_t=gtd_t, txy=txy, px_frac=px_frac)
+        if io_batch:
+            g_leaves, per_view = _io_batch_grads(
+                gauss, cams, T, ea, eb, intr, cfg_iter, mcfg,
+                initialization, lists, gt_tb, mask_tb, gtd_tb)
+        elif batch:
+            g_leaves, per_view = _batch_render_grads(
+                gauss, cams, T, ea, eb, intr, cfg_iter, mcfg,
+                initialization, lists)
+        else:
+            per_view = []
+            for v in range(b):
+                if not fused:
+                    _, gl, gt_v, go_v, gea_v, geb_v, radii_v = (
+                        _view_loss_grads(gauss, cams, v, T[v], ea[v], eb[v],
+                                         intr, cfg_iter, mcfg,
+                                         initialization, lists[v]))
+                else:
+                    li, lv = lists[v].idx, lists[v].vld
+                    gt_t, mask_t = gt_tb[v], mask_tb[v]
+                    gtd_t = None if gtd_tb is None else gtd_tb[v]
+                    txy = None
+                    if use_sub:
+                        ts = tsel_b[v]
+                        li, lv = li[ts], lv[ts]
+                        gt_t, mask_t = gt_t[ts], mask_t[ts]
+                        if gtd_t is not None:
+                            gtd_t = gtd_t[ts]
+                        txy = (tx0f[ts], ty0f[ts])
+                    _, gl, gt_v, go_v, gea_v, geb_v, radii_v = (
+                        render_map_grad(
+                            gauss, T[v], intr, cfg_iter,
+                            TileLists(idx=li, vld=lv), gt_t, mask_t, tau0,
+                            off0, ea[v], eb[v], initialization, mcfg.alpha,
+                            gtd_t=gtd_t, sortperm=sortperm[v], txy=txy,
+                            px_frac=px_frac,
+                            gather_first=mcfg.gather_first))
+                gl = [g * valid_f[v] for g in gl]
+                g_leaves = gl if g_leaves is None else [
+                    a + c for a, c in zip(g_leaves, gl)]
+                per_view.append((gt_v, go_v, gea_v, geb_v, radii_v))
+        for v, (gt_v, go_v, gea_v, geb_v, radii_v) in enumerate(per_view):
             s = valid_f[v]
-            gl = [g * s for g in gl]
-            g_leaves = gl if g_leaves is None else [
-                a + c for a, c in zip(g_leaves, gl)]
             g_tau.append(gt_v * s)
             g_ea.append(gea_v * s)
             g_eb.append(geb_v * s)
@@ -400,6 +523,8 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
         since += 1
         if use_lists and (since >= mcfg.rebin_every or do_dens):
             lists = _build_lists(m, T, intr, cfg_iter, mcfg.bin_margin)
+            if use_segsum:
+                sortperm = _sort_lists(lists)
             since = 0
 
     # the final visibility pass, from the lists or binning anew

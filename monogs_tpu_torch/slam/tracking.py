@@ -1,31 +1,50 @@
-"""Camera tracking: fused first-order Adam + count-sketched Gauss-Newton/LM.
+"""Camera tracking: first-order Adam + count-sketched Gauss-Newton/LM.
 
-Counterpart of ``monogs_tpu/slam/tracking.py`` for the branch the shipped
-configuration takes (``configs/mono/tum/base_config.yaml``,
-``bench.py``):
+Counterpart of ``monogs_tpu/slam/tracking.py``, branch for branch:
 
-- frozen margin tile lists (``bin_margin > 0``) over a random tile subset
-  (``fo_tile_frac < 1``), one fused loss-and-gradient kernel per
-  first-order iteration (``fo_fused``);
-- the fast second-order path: one primal-plus-six-tangents kernel per
-  iteration over a tile subset, a fresh count sketch, a damped 8x8 solve,
-  fine-stage refinement against frozen macro lists (``so_from_fo_aux``,
-  ``rebin_so_iters``), and the final n_touched render (``final_refine`` /
-  ``final_reuse``);
-- best-loss caching and plateau exits; mono and RGB-D.
+- lists: with ``bin_margin > 0``, frozen margin tile lists built at the
+  seed pose; with ``bin_margin == 0`` none, and every render bins the scene
+  at its pose and blends through ``cfg.backend`` (the list kernels, the
+  macro-list kernels or the XLA blend, see ``render``);
+- first order (Adam over the 8-dim pose/exposure state): over a random
+  tile subset of the lists (``fo_tile_frac < 1``) either one fused
+  loss-and-gradient kernel per iteration (``fo_fused``, Huber,
+  ``"pallas_lists"``: the shipped configuration,
+  ``configs/mono/tum/base_config.yaml``, ``bench.py``) or the subset's
+  loss through ``render_tiles`` and autograd; otherwise the full frame's
+  loss through ``render`` and autograd;
+- second order: on ``"pallas_lists"`` with lists the fast path, one
+  primal-plus-six-tangents kernel per iteration over a tile subset, a
+  fresh count sketch, a damped 8x8 solve, fine-stage refinement against
+  frozen macro lists (``so_from_fo_aux``, ``rebin_so_iters``); otherwise
+  the linearised path (``jax.linearize`` in the JAX package): the sketched
+  full-frame residual and its eight tangents by ``torch.func.jvp`` under
+  ``vmap``, four tangents at a time, over lists rebuilt at each
+  iteration's pose (``rebin_so``) or frozen, or binned at the pose;
+- the final n_touched render (``final_refine`` / ``final_reuse``),
+  best-loss caching and plateau exits; mono and RGB-D.
+
+Until the port had every branch, ``track_frame`` with the package defaults
+(``RenderConfig()``, ``TrackConfig()``: backend "xla", ``bin_margin`` 0,
+``fo_tile_frac`` 1) raised; it now runs the full-frame first order and the
+linearised second order. Where the JAX package raises, the port raises
+too: the linearised second order through a kernel's autograd Function
+(``"pallas_lists"`` without lists, ``"pallas"`` / ``"pallas_compact"``
+without lists), which has no forward-mode rule in either package.
 
 PyTorch runs eagerly, so the two optimizer loops are Python loops over
 device tensors that synchronize with the host once per iteration, to test
 the exit condition; ``TrackResult.host_syncs`` counts them. (The JAX package
 runs each frame as one program with ``lax.while_loop``s.)
 
-Random draws come from a ``torch.Generator``: the first-order tile subset,
-then the second-order tile subset, then one sketch per second-order
+Random draws come from a ``torch.Generator``: the first-order tile subset
+(with lists and ``fo_tile_frac < 1``), then the second-order tile subset
+(fast path with ``so_tile_frac < 1``), then one sketch per second-order
 iteration. ``draws`` replaces them with given values, so a test can replay
 another generator's stream.
 
-The other branches raise ``NotImplementedError`` and name the slice that
-brings them.
+``stage != "full"`` (the truncated profiling programs) raises
+``NotImplementedError`` and names the slice that brings it.
 """
 
 from __future__ import annotations
@@ -38,9 +57,9 @@ from ..ops import losses, se3
 from ..ops.sketch import apply_sketch, damped_lstsq, make_sketch, sketch_from_draw
 from ..render.camera import Intrinsics
 from ..render.renderer import (
-    GaussianArrays, RenderConfig, TileLists, _tile_origins, build_tile_lists,
-    refine_fine_lists, render, render_fo_grad_tiles, render_pose_jvp_tiles,
-    tile_images,
+    GaussianArrays, RenderConfig, TileLists, _check_backend, _tile_origins,
+    build_tile_lists, refine_fine_lists, render, render_fo_grad_tiles,
+    render_pose_jvp_tiles, render_tiles, tile_images,
 )
 from .frame import FrameData
 
@@ -133,28 +152,140 @@ class TrackDraws(NamedTuple):
     sketches: Sequence = ()                  # per so iteration: (perm, signs)
 
 
+def _fast_so(cfg: RenderConfig, tcfg: TrackConfig) -> bool:
+    """Whether the second order takes the fused jvp8 path
+    (tracking.py:597-600); otherwise it linearises the render."""
+    return cfg.backend == "pallas_lists" and tcfg.bin_margin > 0
+
+
 def _check_supported(cfg: RenderConfig, tcfg: TrackConfig):
+    _check_backend(cfg)
     if tcfg.stage != "full":
         raise NotImplementedError(
             f"stage={tcfg.stage!r}: the attribution-only truncated frame "
             "programs are not ported (profiling slice)")
-    if cfg.backend != "pallas_lists":
-        raise NotImplementedError(
-            f"backend={cfg.backend!r}: tracking is ported for the list blend "
-            "only. On the other backends the JAX package's frame takes its "
-            "unfused branches (the XLA blend over frozen lists; without "
-            "lists, a second-order phase by jax.linearize), which arrive "
-            "with the tracking A/B-knobs slice")
-    if tcfg.bin_margin <= 0:
-        raise NotImplementedError(
-            "bin_margin == 0 (per-iteration rebinning through the "
-            "differentiable blend) arrives with the tracking A/B-knobs slice")
-    if tcfg.fo_max_iter > 0 and not (
-            tcfg.fo_tile_frac < 1.0 and tcfg.fo_fused and tcfg.use_huber):
-        raise NotImplementedError(
-            "the unfused first-order path (fo_tile_frac == 1, fo_fused "
-            "False or use_huber False) differentiates through the blend and "
-            "arrives with the tracking A/B-knobs slice")
+    # the linearised second order pushes tangents through the render; on
+    # these backends without frozen lists the render blends through a
+    # kernel's autograd Function, which has no forward-mode rule (the JAX
+    # package's custom_vjp has none either: jax.linearize raises there)
+    if (tcfg.so_max_iter > 0 and tcfg.bin_margin <= 0
+            and cfg.backend != "xla"):
+        raise TypeError(
+            f"backend={cfg.backend!r} with bin_margin == 0 and "
+            "so_max_iter > 0: the linearised second order would push "
+            "tangents through the blend kernel's autograd Function, which "
+            "has no forward-mode (JVP) rule; the JAX package fails here too "
+            "(jax.linearize of a custom_vjp). Use bin_margin > 0, backend "
+            "'xla', or so_max_iter 0")
+
+
+def _p0(ea, eb):
+    """The 8-dim state (tau = 0, ea, eb) the unfused paths differentiate."""
+    return torch.cat([torch.zeros(6, dtype=ea.dtype, device=ea.device),
+                      ea.reshape(1), eb.reshape(1)])
+
+
+def _residual(gauss, frame: FrameData, T, p8, intr, cfg, tcfg: TrackConfig,
+              lists=None):
+    """Per-pixel residual images at pose Exp(p8[:6]) T: the opacity-weighted
+    masked exposure residual [3, H, W] and, for RGB-D, the masked depth
+    residual [1, H, W] (None for mono)."""
+    out = render(gauss, T, intr, cfg, tau=p8[:6], lists=lists)
+    r_rgb = losses.tracking_residual_rgb(out.image, frame.gt_image,
+                                         out.opacity, frame.mapping_mask,
+                                         p8[6], p8[7])
+    if tcfg.monocular:
+        return r_rgb, None
+    depth_mask = (frame.gt_depth > 0.01) & (out.opacity > 0.95)
+    r_depth = torch.where(depth_mask, out.depth - frame.gt_depth,
+                          torch.zeros_like(out.depth))
+    return r_rgb, r_depth
+
+
+def _objective(r, r_d, tcfg: TrackConfig):
+    """The first-order objective of residual r (and depth residual r_d):
+    the norm of the signed-Huber residual (or the p-norm), mixed with the
+    depth term's norm for RGB-D (slam_utils.py:103-113)."""
+    if tcfg.use_huber:
+        loss = torch.sqrt(torch.sum(r * r) + 1e-20)
+    else:
+        loss = torch.sum(losses.abs_(r) ** tcfg.pnorm) ** (1.0 / tcfg.pnorm)
+    if r_d is not None:
+        loss = tcfg.alpha * loss + (1 - tcfg.alpha) * torch.sqrt(
+            torch.sum(r_d * r_d) * (r.numel() / r_d.numel()) + 1e-20)
+    return loss
+
+
+def _fo_loss(gauss, frame, T, p8, intr, cfg, tcfg: TrackConfig, lists=None):
+    """First-order objective over the full frame (slam_frontend.py:596-600)
+    and the L1 of its (signed-Huber) residual."""
+    r_rgb, r_depth = _residual(gauss, frame, T, p8, intr, cfg, tcfg, lists)
+    if tcfg.use_huber:
+        r_rgb = losses.huber_signed(r_rgb, tcfg.huber_delta)
+    return _objective(r_rgb, r_depth, tcfg), torch.sum(torch.abs(r_rgb))
+
+
+def _fo_loss_tiles(gauss, T, p8, intr, cfg, tcfg: TrackConfig, lists_sub,
+                   tx0s, ty0s, gt_t, mask_t, gtd_t, scale):
+    """First-order objective over a tile subset (``render_tiles``, zero
+    background) and its L1 scaled by ``scale`` (n_fine / n_sub)."""
+    col, dep, acc = render_tiles(gauss, T, intr, cfg, lists_sub, tx0s, ty0s,
+                                 tau=p8[:6])
+    e = torch.abs(p8[6]) + losses.EXPOSURE_EPS
+    r = acc[..., None] * mask_t * ((e * col + p8[7]) - gt_t)
+    l1 = torch.sum(torch.abs(r)) * scale
+    if tcfg.use_huber:
+        r = losses.huber_signed(r, tcfg.huber_delta)
+    r_d = None
+    if not tcfg.monocular:
+        depth_mask = (gtd_t > 0.01) & (acc[..., None] > 0.95)
+        r_d = torch.where(depth_mask, dep[..., None] - gtd_t,
+                          torch.zeros_like(gtd_t))
+    return _objective(r, r_d, tcfg), l1
+
+
+def _sketched_Sf(gauss, frame, T, p8, sketch, intr, cfg, tcfg, lists):
+    """The bucketed residual sums Sf(p8) (slam_frontend.py:637-649) and the
+    raw L1, from one render."""
+    r_rgb, r_depth = _residual(gauss, frame, T, p8, intr, cfg, tcfg, lists)
+    l1 = torch.sum(torch.abs(r_rgb))
+    if tcfg.use_huber:
+        r_rgb = losses.huber_signed(r_rgb, tcfg.huber_delta)
+        if r_depth is not None:
+            r_depth = losses.huber_signed(r_depth, tcfg.huber_delta)
+    r2 = torch.sum(r_rgb, dim=0)
+    if r_depth is not None:
+        r2 = tcfg.alpha * r2 + (1 - tcfg.alpha) * r_depth[0]
+    r2 = r2 * (sketch.d / r2.numel())
+    return apply_sketch(r2.reshape(-1), sketch), l1
+
+
+def _so_linearized_step(gauss, frame, T, ea, eb, sketch, intr, cfg, tcfg,
+                        lists):
+    """(Sf, SJ, l1) by forward mode (JAX: jax.linearize, then the 8 tangents
+    by lax.map in batches of 4): ``torch.func.jvp`` of the sketched residual
+    under ``vmap`` over 4 of the 8 basis tangents at a time, which bounds
+    the blend's transient memory at 4 tangents. Without ``lists`` the
+    scene is binned at the pose first (what the render would do; the lists
+    carry no tangent)."""
+    p = _p0(ea, eb)
+    if lists is None:
+        lists = build_tile_lists(gauss, T, intr, cfg, tau=p[:6])
+    eye = torch.eye(8, dtype=p.dtype, device=p.device)
+
+    def sf(q):
+        return _sketched_Sf(gauss, frame, T, q, sketch, intr, cfg, tcfg,
+                            lists)
+
+    # forward mode records no graph: under no_grad the XLA blend runs
+    # without its reverse-mode checkpoint
+    cols = []
+    with torch.no_grad():
+        for k in (0, 4):
+            (Sf, l1), (t_sf, _) = torch.func.vmap(
+                lambda e: torch.func.jvp(sf, (p,), (e,)))(eye[k:k + 4])
+            cols.append(t_sf)
+    return Sf[0], torch.cat(cols).T, l1[0]
 
 
 def _huber_chain(r, delta):
@@ -253,15 +384,15 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
     def randperm(n):
         return torch.randperm(n, generator=generator, device=dev)
 
-    if tcfg.so_from_fo_aux:
+    use_lists = tcfg.bin_margin > 0
+    lists_fo = fo_aux = None
+    if use_lists:
         lists_fo, fo_aux = build_tile_lists(
             gauss, T_init, intr, cfg_track, margin=tcfg.bin_margin,
             with_aux=True)
-    else:
-        lists_fo, fo_aux = build_tile_lists(
-            gauss, T_init, intr, cfg_track, margin=tcfg.bin_margin), None
     tx0f, ty0f = _tile_origins(intr, cfg_track, dev)
     n_fine = tx0f.shape[0]
+    fast_so = _fast_so(cfg, tcfg)
     gt_all = tile_images(frame.gt_image, intr, cfg_track)
     mask_all = tile_images(frame.mapping_mask, intr, cfg_track)
     gtd_all = (None if tcfg.monocular
@@ -272,25 +403,46 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
                 tx0f[tsel], ty0f[tsel], gt_all[tsel], mask_all[tsel],
                 None if gtd_all is None else gtd_all[tsel])
 
-    # ---------------- phase 1: first-order Adam (fused kernel) ----------
+    # ---------------- phase 1: first-order Adam -------------------------
     s = TrackState(
         i=0, T=T_init, ea=ea_init, eb=eb_init,
         adam_m=torch.zeros(8, device=dev), adam_v=torch.zeros(8, device=dev),
         adam_t=0, lam=f32(tcfg.initial_lambda), prev_l1=big, best_l1=big,
         best_T=T_init, best_ea=ea_init, best_eb=eb_init, converged=False,
         hist=[], since_best=torch.zeros((), dtype=torch.int64, device=dev))
-    if tcfg.fo_max_iter > 0:
+    fo_sub = use_lists and tcfg.fo_tile_frac < 1.0 and tcfg.fo_max_iter > 0
+    # the fused loss-and-gradient kernel: Huber on the list subset path
+    fo_fused = (fo_sub and tcfg.fo_fused and tcfg.use_huber
+                and cfg.backend == "pallas_lists")
+    if fo_sub:
         n_sub = max(8, int(n_fine * tcfg.fo_tile_frac) // 8 * 8)
         tsel = (draws.fo_tsel.to(dev) if draws.fo_tsel is not None
                 else randperm(n_fine)[:n_sub])
         lists_sub, tx0s, ty0s, gt_t, mask_t, gtd_t = subset(tsel)
         sub_scale = n_fine / n_sub
+
+    def fo_grad(s: TrackState):
+        """(l1, g8) of the first-order objective at s."""
+        if fo_fused:
+            _, l1, g = render_fo_grad_tiles(
+                gauss, s.T, intr, cfg_track, lists_sub, tx0s, ty0s, zero6,
+                s.ea, s.eb, gt_t, mask_t, tcfg.use_huber, tcfg.huber_delta,
+                gtd_t=gtd_t, alpha=tcfg.alpha)
+            return l1 * sub_scale, g
+        p8 = _p0(s.ea, s.eb).requires_grad_(True)
+        with torch.enable_grad():
+            if fo_sub:
+                loss, l1 = _fo_loss_tiles(
+                    gauss, s.T, p8, intr, cfg_track, tcfg, lists_sub, tx0s,
+                    ty0s, gt_t, mask_t, gtd_t, sub_scale)
+            else:
+                loss, l1 = _fo_loss(gauss, frame, s.T, p8, intr, cfg_track,
+                                    tcfg, lists_fo)
+        (g,) = torch.autograd.grad(loss, p8)
+        return l1.detach(), g
+
     while s.i < tcfg.fo_max_iter and not s.converged:
-        _, l1, g = render_fo_grad_tiles(
-            gauss, s.T, intr, cfg_track, lists_sub, tx0s, ty0s, zero6,
-            s.ea, s.eb, gt_t, mask_t, tcfg.use_huber, tcfg.huber_delta,
-            gtd_t=gtd_t, alpha=tcfg.alpha)
-        l1 = l1 * sub_scale
+        l1, g = fo_grad(s)
         better = l1 < s.best_l1
         t = s.adam_t + 1
         m = 0.9 * s.adam_m + 0.1 * g
@@ -324,33 +476,37 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
     if tcfg.so_max_iter > 0:
         if tcfg.use_first_order_best:
             s = s._replace(T=s.best_T, ea=s.best_ea, eb=s.best_eb)
-        if tcfg.so_from_fo_aux and fo_aux is not None:
+        if use_lists and tcfg.so_from_fo_aux:
             lists_so, so_aux = lists_fo, fo_aux
-        elif tcfg.rebin_before_so:
+        elif use_lists and tcfg.rebin_before_so:
             lists_so, so_aux = build_tile_lists(
                 gauss, s.T, intr, cfg_track, margin=tcfg.bin_margin,
                 with_aux=True)
         else:
             lists_so = lists_fo
-        if tcfg.so_tile_frac < 1.0:
-            n_sub_so = max(8, int(n_fine * tcfg.so_tile_frac) // 8 * 8)
-            so_tsel = (draws.so_tsel.to(dev) if draws.so_tsel is not None
-                       else randperm(n_fine)[:n_sub_so])
-            so_scale = n_fine / n_sub_so
+        if not fast_so:
+            m_sketch = frame.gt_image.shape[1] * frame.gt_image.shape[2]
         else:
-            n_sub_so = n_fine
-            so_tsel = torch.arange(n_fine, device=dev)
-            so_scale = 1.0
-        so_txs, so_tys = tx0f[so_tsel], ty0f[so_tsel]
-        gt_t_so, mask_t_so = gt_all[so_tsel], mask_all[so_tsel]
-        gtd_t_so = None if gtd_all is None else gtd_all[so_tsel]
-        m_sketch = n_sub_so * p_pix
+            if tcfg.so_tile_frac < 1.0:
+                n_sub_so = max(8, int(n_fine * tcfg.so_tile_frac) // 8 * 8)
+                so_tsel = (draws.so_tsel.to(dev) if draws.so_tsel is not None
+                           else randperm(n_fine)[:n_sub_so])
+                so_scale = n_fine / n_sub_so
+            else:
+                n_sub_so = n_fine
+                so_tsel = torch.arange(n_fine, device=dev)
+                so_scale = 1.0
+            so_txs, so_tys = tx0f[so_tsel], ty0f[so_tsel]
+            gt_t_so, mask_t_so = gt_all[so_tsel], mask_all[so_tsel]
+            gtd_t_so = None if gtd_all is None else gtd_all[so_tsel]
+            m_sketch = n_sub_so * p_pix
 
         def refine_at(T):
             return refine_fine_lists(gauss, T, intr, cfg_track, so_aux,
                                      so_tsel)
 
-        def so_step(s: TrackState, lists_it: TileLists) -> TrackState:
+        def so_step(s: TrackState, lists_it: Optional[TileLists]
+                    ) -> TrackState:
             if s.i < len(draws.sketches):
                 perm, signs = draws.sketches[s.i]
                 sketch = sketch_from_draw(perm.to(dev), signs.to(dev),
@@ -359,10 +515,17 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
             else:
                 sketch = make_sketch(generator, m_sketch, tcfg.stack_dim,
                                      tcfg.sketch_dim, device=dev)
-            Sf, SJ, l1 = _so_fast_step(
-                gauss, gt_t_so, mask_t_so, s.T, s.ea, s.eb, sketch, intr,
-                cfg_track, tcfg, lists_it, so_txs, so_tys, scale=so_scale,
-                gtd_t=gtd_t_so)
+            if fast_so:
+                Sf, SJ, l1 = _so_fast_step(
+                    gauss, gt_t_so, mask_t_so, s.T, s.ea, s.eb, sketch,
+                    intr, cfg_track, tcfg, lists_it, so_txs, so_tys,
+                    scale=so_scale, gtd_t=gtd_t_so)
+            else:
+                if use_lists and tcfg.rebin_so:
+                    lists_it = build_tile_lists(gauss, s.T, intr, cfg_track)
+                Sf, SJ, l1 = _so_linearized_step(
+                    gauss, frame, s.T, s.ea, s.eb, sketch, intr, cfg_track,
+                    tcfg, lists_it)
             lam = torch.where(
                 l1 < s.prev_l1,
                 torch.clamp(s.lam / tcfg.decrease_factor,
@@ -390,7 +553,7 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
 
         s = s._replace(i=0, prev_l1=big, converged=False, hist=[],
                        since_best=torch.zeros_like(s.since_best))
-        can_refine = tcfg.rebin_so and so_aux is not None
+        can_refine = fast_so and tcfg.rebin_so and so_aux is not None
         if can_refine and tcfg.rebin_so_iters > 0:
             k_rebin = min(tcfg.rebin_so_iters, tcfg.so_max_iter)
             while s.i < k_rebin and not s.converged:
@@ -401,11 +564,12 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
                 s = so_step(s, lists_fixed)
                 syncs += 1
         else:
-            frozen = (None if can_refine else TileLists(
-                idx=lists_so.idx[so_tsel], vld=lists_so.vld[so_tsel]))
+            frozen = lists_so
+            if fast_so and not can_refine:
+                frozen = TileLists(idx=lists_so.idx[so_tsel],
+                                   vld=lists_so.vld[so_tsel])
             while s.i < tcfg.so_max_iter and not s.converged:
-                s = so_step(s, frozen if frozen is not None
-                            else refine_at(s.T))
+                s = so_step(s, refine_at(s.T) if can_refine else frozen)
                 syncs += 1
         so_iters = s.i
         so_losses = _nan_padded(s.hist, tcfg.so_max_iter, dev)
@@ -421,9 +585,10 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
     # final render with n_touched (keyframing / visibility) and the median
     # depth, from frozen or refined margin lists where the config allows
     final_lists = None
-    if tcfg.final_reuse and tcfg.so_max_iter > 0:
+    if tcfg.final_reuse and use_lists and tcfg.so_max_iter > 0:
         final_lists = lists_so
-    elif tcfg.final_refine and tcfg.so_max_iter > 0 and so_aux is not None:
+    elif (tcfg.final_refine and tcfg.so_max_iter > 0 and fast_so
+          and so_aux is not None):
         final_lists = refine_fine_lists(gauss, T, intr, cfg_track, so_aux,
                                         torch.arange(n_fine, device=dev))
     out = render(gauss, T, intr, cfg, lists=final_lists)

@@ -9,7 +9,10 @@ The other builds are either ``csrc/blend_lists.cu`` of other checkouts
 checkout's nvcc flags, or this checkout's source without ``-fmad=false``
 (nvcc then contracts a * b + c into one FFMA; the library is built with the
 flag so that its alpha and transmittance thresholds round as the plain
-PyTorch version's do). Every build must have the same C interface.
+PyTorch version's do). Every build must have the same C interface, except
+that a ``blend_map_grad`` without the ``madd`` argument (sources before
+the fused mapping step's madd variant) is called through an adapter; the
+madd variant is left out of the turns.
 
 It prints each build's registers per kernel (``ptxas -v``), then runs
 chip_smoke's tracking and mapping kernel phases (kernels 1-6 at the main
@@ -42,17 +45,38 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 
-def build(src: Path, flags: list[str]):
+class _NoMaddInterface:
+    """A library whose ``blend_map_grad`` takes no ``madd`` pointer, called
+    with this checkout's arguments (``madd`` must be None)."""
+
+    def __init__(self, lib):
+        from monogs_tpu_torch import _build
+
+        self._lib = lib
+        sig = list(_build._SIGNATURES["blend_lists"]["blend_map_grad"])
+        lib.blend_map_grad.argtypes = sig[:7] + sig[8:]
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    def blend_map_grad(self, *args):
+        assert args[7] is None, "this build has no madd variant"
+        return self._lib.blend_map_grad(*args[:7], *args[8:])
+
+
+def build(name: str, src: Path, flags: list[str]):
     """Build ``src`` with ``flags`` (and ``-Xptxas -v``) into this
-    checkout's build directory; returns the library loaded with
-    blend_lists' C interface and {kernel: registers}."""
+    checkout's build directory as build ``name`` (two copies of one source
+    are two libraries); returns the library loaded with blend_lists' C
+    interface and {kernel: registers}."""
     from monogs_tpu_torch import _build
 
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(src.parent.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(flags).encode())
-    out = _build.BUILD_DIR / f"libblend_lists_ab_{h.hexdigest()[:12]}.so"
+    out = (_build.BUILD_DIR
+           / f"libblend_lists_ab_{name}_{h.hexdigest()[:12]}.so")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     r = subprocess.run([_build.nvcc_path(), *flags, "-Xptxas", "-v", "-o",
                         str(out), str(src)], capture_output=True, text=True)
@@ -66,7 +90,10 @@ def build(src: Path, flags: list[str]):
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
             regs[fn] = int(m.group(1))
-    return _build.load(out, "blend_lists"), regs
+    lib = _build.load(out, "blend_lists")
+    if "madd" not in src.read_text():
+        lib = _NoMaddInterface(lib)
+    return lib, regs
 
 
 def main():
@@ -98,7 +125,7 @@ def main():
     srcs["this"] = (_build.SOURCES["blend_lists"], flags)
     libs = {}
     for name, (src, fl) in srcs.items():
-        libs[name], regs = build(src, fl)
+        libs[name], regs = build(name, src, fl)
         print(json.dumps({"build": name, "registers": regs}), flush=True)
     e_exp, _ = cs.expf_ops()
 
@@ -118,7 +145,8 @@ def main():
         entries = cs.kernel_phase(torch, intr, cfg, tcfg, scene, poses[1],
                                   frame, e_exp, strict=False)
         entries.update(cs.mapping_kernel_phase(torch, intr, cfg, scene,
-                                               poses[1], frame, e_exp))
+                                               poses[1], frame, e_exp,
+                                               with_madd=False))
         for e in entries.values():
             times.setdefault(e["name"], {}).setdefault(name, []).append(
                 e["ms"])

@@ -149,6 +149,44 @@ def test_map_grad_on_card(card, mode, k_fine):
 
 
 @pytest.mark.parametrize("k_fine", [96, 256])
+@pytest.mark.parametrize("rgbd", [False, True])
+def test_map_grad_madd_on_card(card, rgbd, k_fine):
+    """The madd variant on raw gathered rows (empty list slots hold
+    Gaussian 0's row): against its plain version, and bit for bit against
+    the kernel without madd on the same rows pre-masked."""
+    cfg = CFG._replace(k_fine=k_fine)
+    g = torch.Generator().manual_seed(0)
+    scene = make_synthetic_scene(g, n=3000, spread=2.0, depth_mean=3.0,
+                                 scale_min=0.03, scale_max=0.09)
+    scene = type(scene)(*(x.to(card) for x in scene))
+    T = se3.se3_exp(torch.tensor([0.01, -0.02, 0.0, 0.01, 0.0, -0.01],
+                                 device=card))
+    lists = rr.build_tile_lists(scene, T, INTR, cfg, margin=4.0)
+    prep, packed, _, _ = rr._project(scene, T, INTR, cfg, lists=lists)
+    vld = lists.vld & prep.valid[lists.idx]
+    raw = packed[lists.idx].contiguous()
+    madd = torch.where(vld, 0.0, -1e30).to(torch.float32)
+    masked = rr._masked_rows(raw, vld)
+    assert not bool(vld.all())
+    tx0, ty0 = rr._tile_origins(INTR, cfg, card)
+    pmat = rr._tile_pmat(cfg, card)
+    gt, mask, gtd = ground_truth(masked, tx0, ty0, pmat, card)
+    args = (tx0, ty0, pmat, gt, mask, torch.tensor(1.07, device=card),
+            torch.tensor(0.015, device=card), W, H, True, 0.9, 1e-8)
+    kw = dict(gtd_t=gtd if rgbd else None)
+    n0 = dict(bl.LAUNCHES)
+    dd, sums = bl.map_grad_lists(raw, *args, madd=madd, **kw)
+    key = "map_grad_madd_rgbd" if rgbd else "map_grad_madd"
+    assert bl.LAUNCHES[key] == n0[key] + 1
+    pdd, psums = bl.map_grad_lists_plain(raw, *args, madd=madd, **kw)
+    assert_per_column(dd, pdd, 1e-4)
+    torch.testing.assert_close(sums, psums, rtol=1e-4, atol=1e-5)
+    m_dd, m_sums = bl.map_grad_lists(masked, *args, **kw)
+    assert torch.equal(dd, m_dd) and torch.equal(sums, m_sums)
+    assert float(psums[:, 0].sum()) > 0 and float(torch.abs(pdd).max()) > 0
+
+
+@pytest.mark.parametrize("k_fine", [96, 256])
 def test_blend_vjp_on_card(card, k_fine):
     d, _, _, tx0, ty0, pmat = scene_rows(card, k_fine=k_fine)
     g = torch.Generator(device=card).manual_seed(2)

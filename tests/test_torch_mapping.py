@@ -451,15 +451,11 @@ def test_color_refinement_parity():
     dict(batch_render=True, fused_grad=False),
 ])
 def test_unported_branches_raise(change):
-    """The A/B knobs where the JAX package would take them (batch_render on
-    the unfused branch over frozen lists) name their slice."""
-    with pytest.raises(NotImplementedError, match="A/B-knobs slice"):
-        tmap._check_supported(TC, tmap.MapConfig(**change), None)
+    """Every A/B knob is accepted; only the view-sharded program
+    (axis_name) names the slice that brings it."""
+    tmap._check_supported(TC, tmap.MapConfig(**change), None)
     with pytest.raises(NotImplementedError, match="parallel slice"):
-        tmap._check_supported(TC, tmap.MapConfig(), "views")
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        tr.map_grad_from_rows(None, TI, TC, None, None, None, None, False,
-                              0.9, madd=torch.zeros(1))
+        tmap._check_supported(TC, tmap.MapConfig(**change), "views")
 
 
 @pytest.mark.parametrize("change", [

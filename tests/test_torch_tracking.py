@@ -135,19 +135,22 @@ def test_cuda_default_entry_points_raise_without_cuda(monkeypatch):
     assert orbit_pose(0.1, device="cpu").shape == (4, 4)
 
 
-@pytest.mark.parametrize("change,slice_name", [
-    (dict(bin_margin=0.0), "tracking A/B-knobs slice"),
-    (dict(fo_fused=False), "tracking A/B-knobs slice"),
-    (dict(stage="fo"), "profiling slice"),
+@pytest.mark.parametrize("backend,change,error,match", [
+    ("pallas_lists", dict(stage="fo"), NotImplementedError,
+     "profiling slice"),
+    ("pallas_lists", dict(bin_margin=0.0), TypeError, "forward-mode"),
+    ("pallas", dict(bin_margin=0.0), TypeError, "forward-mode"),
 ])
-def test_unported_branches_raise(change, slice_name):
+def test_unported_branches_raise(backend, change, error, match):
+    """The truncated profiling stages name their slice; the linearised
+    second order through a kernel (where the JAX package raises too)
+    names its cause; every other branch is accepted."""
     from monogs_tpu_torch.render import RenderConfig
 
-    cfg = RenderConfig(backend="pallas_lists")
-    tcfg = ttrack.TrackConfig(**{**TRACK, **change})
-    with pytest.raises(NotImplementedError, match=slice_name):
-        ttrack._check_supported(cfg, tcfg)
-    with pytest.raises(NotImplementedError,
-                       match="backend='xla'.*tracking A/B-knobs slice"):
-        ttrack._check_supported(RenderConfig(backend="xla"),
+    with pytest.raises(error, match=match):
+        ttrack._check_supported(RenderConfig(backend=backend),
+                                ttrack.TrackConfig(**{**TRACK, **change}))
+    for be in ("xla", "pallas", "pallas_compact", "pallas_lists"):
+        ttrack._check_supported(RenderConfig(backend=be),
                                 ttrack.TrackConfig(**TRACK))
+    ttrack._check_supported(RenderConfig(), ttrack.TrackConfig())
