@@ -22,7 +22,11 @@ JAX. Phases, each of which exits non-zero on failure:
    at the bench shape (k_macro 1024, k_fine 96) and at the 320x240 /
    k_macro 4096 / k_fine 256 shape of configs/synthetic/rgbd.yaml; and
    the mapping step's madd variant on raw rows at both mapping shapes,
-   also bit for bit against the step on the same rows pre-masked;
+   also bit for bit against the step on the same rows pre-masked; the
+   fused first-order and mapping steps (and madd) are launched twice and
+   must give the same bits, are held to their plain version in float64
+   (``f64_excess``), and their registers, shared memory per CTA and
+   resident CTAs per SM are logged and added to their kernel entries;
 3. tracking path: render the 22 frames of a jittered orbit around a
    100k-Gaussian synthetic scene through the port's ``render``, track a
    20-frame monocular chain with the shipped tracking configuration
@@ -53,8 +57,10 @@ Each path's launch counters are zeroed just before it and read just after.
 
 Output, one JSON object per line: each path's metrics, then
 ``{"kernels": [...]}`` (each kernel's time, plain time, bound, error and
-launches on its path), then the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.
+launches on its path; ``ms`` is the CUDA-event time of one call on an
+idle card, which also counts the card's wait for the host, and
+``device_ms`` the device time of one call with the card kept busy), then
+the nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -73,6 +79,26 @@ ROOT = Path(__file__).resolve().parent
 # slower; the power limit is printed beside every number.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12   # dense, tensor cores
+
+
+def kernel_tc_ops(name, n):
+    """The part of ``kernel_ops`` that the kernel does as TF32 products on
+    the tensor cores: the fused steps' row sums, that is the feature sums
+    (6 per contributing pair for r, g, b; 8 with a depth column, the
+    mapping step's or the first-order step's depth chain) and the six
+    conic moments and their sums (12 per live pair, 24 with the depth
+    chain). Counted once, as the function needs them: the split into TF32
+    big parts and remainders is the design's cost."""
+    live, contrib = n["live"], n["contrib"]
+    return {
+        "fo_grad": 6 * contrib + 12 * live,
+        "fo_grad_rgbd": 8 * contrib + 24 * live,
+        "map_grad": 6 * contrib + 12 * live,
+        "map_grad_rgbd": 8 * contrib + 12 * live,
+        "map_grad_madd": 6 * contrib + 12 * live,
+        "map_grad_madd_rgbd": 8 * contrib + 12 * live,
+    }.get(name.split("@")[0], 0)
 
 
 def kernel_ops(name, n, e_exp):
@@ -119,6 +145,8 @@ def kernel_ops(name, n, e_exp):
 
     Work per row or per pixel (the row cotangents, the residual), under 2 %
     of the total at these shapes, is left out: a lower bound.
+    ``kernel_tc_ops`` says which of these operations the kernel does on the
+    tensor cores.
     """
     fwd = (16 + e_exp) * n["walked"] + 3 * n["ok"] + 10 * n["contrib"]
     live, dead = n["live"], n["contrib"] - n["live"]
@@ -201,8 +229,11 @@ def expf_ops():
 # elementwise math in the same order along K (the CUDA library is built
 # with -fmad=false; torch.cumprod/cumsum over a non-innermost dimension scan
 # sequentially), so the alpha and early-exit decisions agree and counts are
-# exact; sums over pixels are taken in another order (warp shuffles against
-# cuBLAS), hence the tolerances (as in tests/test_torch_blend_lists.py).
+# exact; sums over pixels are taken in another order (warp shuffles, or for
+# the fused steps TF32 products of split float32 operands on the tensor
+# cores, against cuBLAS), hence the tolerances (as in
+# tests/test_torch_blend_lists.py). The fused steps and the macro VJPs are
+# launched twice and must give the same bits.
 REPLACES = "monogs_tpu/render/pallas_lists.py"
 KERNELS = {
     "fwd": (f"{REPLACES}:310 (_fwd_kernel)",
@@ -210,19 +241,23 @@ KERNELS = {
     "fwd_counts": (f"{REPLACES}:323 (_fwd_counts_kernel)",
                    "as fwd; counts exact"),
     "fo_grad": (f"{REPLACES}:466 (_fo_grad_kernel)",
-                "dd rtol 1e-3 + 1e-4 x column max; sums rtol 1e-4"),
+                "dd rtol 1e-3 + 1e-4 x column max; sums rtol 1e-4; two "
+                "launches bit-identical; f64_excess <= 2^-14"),
     "fo_grad_rgbd": (f"{REPLACES}:466 (_fo_grad_kernel, rgbd)",
                      "dd, dd_dep rtol 1e-3 + 1e-4 x column max; "
-                     "sums rtol 1e-4"),
+                     "sums rtol 1e-4; two launches bit-identical; "
+                     "f64_excess <= 2^-14"),
     "jvp8": (f"{REPLACES}:794 (_jvp8_kernel)",
              "outs as fwd; touts rtol 1e-3 + 2e-4 x channel max"),
     "bwd": (f"{REPLACES}:451 (_bwd_kernel)",
             "dd rtol 1e-3 + 1e-4 x column max"),
     "map_grad": (f"{REPLACES}:636 (_map_grad_kernel)",
-                 "dd rtol 1e-3 + 1e-4 x column max; sums rtol 1e-4 + 1e-4"),
+                 "dd rtol 1e-3 + 1e-4 x column max; sums rtol 1e-4 + 1e-4; "
+                 "two launches bit-identical; f64_excess <= 2^-14"),
     "map_grad_rgbd": (f"{REPLACES}:636 (_map_grad_kernel, rgbd)",
                       "dd rtol 1e-3 + 1e-4 x column max; "
-                      "sums rtol 1e-4 + 1e-4"),
+                      "sums rtol 1e-4 + 1e-4; two launches bit-identical; "
+                      "f64_excess <= 2^-14"),
     "map_grad_madd": (f"{REPLACES}:636 (_map_grad_kernel, with_madd, "
                       "madd_ref :655-677)",
                       "as map_grad; dd and sums bit-identical to map_grad "
@@ -321,6 +356,27 @@ def restore_launches(saved):
             c[k] = saved[k]
 
 
+FUSED_KERNELS = ("fo_grad", "fo_grad_rgbd", "map_grad", "map_grad_rgbd",
+                 "map_grad_madd", "map_grad_madd_rgbd")
+
+
+def fused_attrs(kf=96, p=256):
+    """{kind: registers per thread, shared memory per CTA and resident CTAs
+    per SM} of the fused steps' kernels at list length kf and P = p, from
+    the library."""
+    import ctypes
+
+    from monogs_tpu_torch import _build
+
+    buf = (ctypes.c_int * (3 * len(FUSED_KERNELS)))()
+    rc = _build.library("blend_lists").blend_fused_attrs(
+        kf, p, ctypes.addressof(buf))
+    check(rc == 0, f"blend_fused_attrs failed with CUDA error {rc}")
+    return {k: dict(registers=buf[3 * i], smem_bytes=buf[3 * i + 1],
+                    ctas_per_sm=buf[3 * i + 2])
+            for i, k in enumerate(FUSED_KERNELS)}
+
+
 def smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -330,8 +386,38 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_ms(torch, fn, reps=25, warmup=3):
+    """Device time of one call of ``fn`` with the card kept busy: a spin
+    kernel holds the card while the host enqueues ``reps`` calls, so that
+    the CUDA events around them time the calls' kernels back to back. It
+    leaves out the time that the card would wait for the wrapper on the
+    host (tens of microseconds per call, more than some of these kernels
+    take); the wrapper's own small kernels (a stack of two scalars for the
+    fused steps) are in."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    # twice the host's enqueue time at 2 GHz, so the calls queue up behind it
+    torch.cuda._sleep(int(4e9 * host_s) + 1_000_000)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def cuda_ms(torch, fn, reps=25, warmup=3):
-    """Median time of one call of ``fn`` on the card (CUDA events)."""
+    """Median time of one call of ``fn`` on the card (CUDA events): the
+    device's time from the call's start to its end, including any time it
+    waits for the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -445,6 +531,32 @@ def per_column_err(torch, got, want, frac, rtol=1e-3):
     return float(err.max()), ok
 
 
+# The fused steps' row sums are TF32 products of float32 operands split
+# into a TF32 big part and a TF32 remainder (about 2^-22 of a product); a
+# single TF32 pass errs by about 2^-11 of a product. Against the plain
+# version in float64, a fused step may err by no more than the float32
+# plain version does, entry by entry (both make the same alpha and exit
+# decisions), plus TF32_SPLIT_FRAC of the column's largest magnitude: the
+# split stays far below it, a single pass does not
+# (tests/test_torch_blend_lists.py::test_fo_grad_tc_precision).
+TF32_SPLIT_FRAC = 2.0 ** -14
+
+
+def f64_excess(torch, got, plain, plain64):
+    """Largest excess of |got - plain64| over |plain - plain64|, over the
+    last-axis column's largest |plain64|."""
+    excess = (torch.abs(got.double() - plain64)
+              - torch.abs(plain.double() - plain64))
+    scale = torch.amax(torch.abs(plain64).reshape(-1, plain64.shape[-1]), 0)
+    return float(torch.amax(excess.reshape(-1, excess.shape[-1]), 0).div(
+        scale.clamp_min(1e-300)).max())
+
+
+def as_f64(torch, args):
+    return tuple(x.double() if torch.is_tensor(x) and x.is_floating_point()
+                 else x for x in args)
+
+
 def outs_err(torch, got, want):
     e_img = float(torch.abs(got[..., :3] - want[..., :3]).max())
     e_dep = float(torch.abs(got[..., 3] - want[..., 3]).max())
@@ -464,19 +576,23 @@ def record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
           f"{name}: kernel disagrees with its plain version "
           f"(max abs error {err:.3e}; tolerance {KERNELS[kind][1]})")
     ms = cuda_ms(torch, fn)
+    device_ms = kernel_ms(torch, fn)
     plain_ms = cuda_ms(torch, plain, reps=plain_reps, warmup=1)
     ops = kernel_ops(name, pairs, e_exp)
+    tc_ops = kernel_tc_ops(name, pairs)
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    t_ops = ((ops - tc_ops) / FP32_FLOPS_PER_S
+             + tc_ops / TF32_FLOPS_PER_S) * 1e3
     entries[name] = dict(
         name=name, route="cuda", source=kernel_source(kind),
         replaces=KERNELS[kind][0], launches=0, max_abs_err=err,
-        tol=KERNELS[kind][1], ms=ms, plain_ms=plain_ms,
+        tol=KERNELS[kind][1], ms=ms, device_ms=device_ms, plain_ms=plain_ms,
         bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         library_ms=None, within_tol=ok, pairs=pairs,
-        bytes=in_bytes + out_bytes, ops=ops, expf_ops=e_exp)
-    log(f"{name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
+        bytes=in_bytes + out_bytes, ops=ops, tc_ops=tc_ops, expf_ops=e_exp)
+    log(f"{name}: {ms:.4f} ms (device {device_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms), bound "
         f"{entries[name]['bound_ms']:.4f} ms by "
         f"{entries[name]['bound_by']}, max abs error {err:.3e}")
 
@@ -553,6 +669,11 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
     for name, gd in (("fo_grad", None), ("fo_grad_rgbd", gtd)):
         args = (d_sub, txs, tys, pmat, gt, mask, ea, eb, W, H)
         dd, ddd, sums = bl.fo_grad_lists(*args, gtd_t=gd, **fo)
+        again = bl.fo_grad_lists(*args, gtd_t=gd, **fo)
+        check(all(x is None or bool(torch.equal(x, y))
+                  for x, y in zip((dd, ddd, sums), again)),
+              f"{name}: two launches differ")
+        del again
         pdd, pddd, psums = bl.fo_grad_lists_plain(*args, gtd_t=gd, **fo)
         err, ok = per_column_err(torch, dd, pdd, 1e-4)
         e_s = torch.abs(sums - psums)
@@ -561,6 +682,14 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
         if gd is not None:
             e2, ok2 = per_column_err(torch, ddd, pddd, 1e-4)
             err, ok = max(err, e2), ok and ok2
+        dd64, ddd64, _ = bl.fo_grad_lists_plain(
+            *as_f64(torch, args), gtd_t=None if gd is None else gd.double(),
+            **fo)
+        ex = f64_excess(torch, dd, pdd, dd64)
+        if gd is not None:
+            ex = max(ex, f64_excess(torch, ddd, pddd, ddd64))
+        del dd64, ddd64
+        ok = ok and ex <= TF32_SPLIT_FRAC
         check(float(psums[:, 0].sum()) > 0, f"{name}: zero residual")
         record(name,
                lambda a=args, g_=gd: bl.fo_grad_lists(*a, gtd_t=g_, **fo),
@@ -568,6 +697,7 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
                                                             **fo),
                err, ok, nbytes(d_sub, *sub_in, gd) + 8,
                nbytes(dd, ddd, sums), pairs_sub)
+        entries[name]["f64_excess"] = ex
     del dd, ddd, sums, pdd, pddd, psums
 
     # 4. primal plus six pose tangents
@@ -692,10 +822,20 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
             args = (raw,) + args[1:]
             kw["madd"] = madd_t
         got, sums = bl.map_grad_lists(*args, **kw)
+        got2, sums2 = bl.map_grad_lists(*args, **kw)
+        check(bool(torch.equal(got, got2)) and bool(torch.equal(sums, sums2)),
+              f"{name}: two launches differ")
+        del got2, sums2
         pdd, psums = bl.map_grad_lists_plain(*args, **kw)
         err, ok = per_column_err(torch, got, pdd, 1e-4)
         e_s = torch.abs(sums - psums)
         ok = ok and bool(torch.all(e_s <= 1e-4 * torch.abs(psums) + 1e-4))
+        kw64 = dict(kw, gtd_t=None if gtd_t is None else gtd_t.double())
+        if madd:
+            kw64["madd"] = madd_t.double()
+        ex = f64_excess(torch, got, pdd, bl.map_grad_lists_plain(
+            *as_f64(torch, args), **kw64)[0])
+        ok = ok and ex <= TF32_SPLIT_FRAC
         check(float(psums[:, 0].sum()) > 0, f"{name}: zero residual")
         if madd:
             check(bool(torch.equal(got, want[0]))
@@ -710,6 +850,7 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
                       kw.get("madd")) + 8,
                nbytes(got, sums),
                pair_counts(torch, bl, dm, txf[ts], tyf[ts], pm, Wc, Hc))
+        entries[name]["f64_excess"] = ex
 
     n_fine = tx0.shape[0]
     n_sub = max(8, int(n_fine * 0.25) // 8 * 8)
@@ -1660,6 +1801,10 @@ def run(scene_seed):
                 log(f"ptxas {name}: {line.strip()}")
     smi = smi_line()
     log(f"built in {build_s:.1f} s on {smi}")
+    attrs = fused_attrs()
+    for kind, a in attrs.items():
+        log(f"{kind}: {a['registers']} registers, {a['smem_bytes']} B of "
+            f"shared memory per CTA (Kf 96), {a['ctas_per_sm']} CTAs per SM")
 
     dev = torch.device("cuda")
     intr, cfg, tcfg, scene, poses_fn = make_bench(torch, dev, scene_seed)
@@ -1697,6 +1842,7 @@ def run(scene_seed):
                      scene, frames, chain_poses)
     for name, e in entries.items():
         kind = name.split("@")[0]
+        e.update(attrs.get(kind, {}))
         e["launches"] = (summary["launches"][kind] if kind in TRACK_KERNELS
                          else macro_launches[kind] if kind in MACRO_KERNELS
                          else ab_launches[kind] if kind in AB_MAP_KERNELS

@@ -451,6 +451,333 @@ __device__ __forceinline__ void reverse_blend(const Tile<Rows>& c, float* rows,
   }
 }
 
+// ---------------------------------------------- tensor-core reverse (TC) --
+// Used by the fused first-order and mapping steps, one CTA per tile. The
+// forward stores the transmittance at each chunk's entry and finds the
+// chunks that some pixel walks into (forward_live); the chunks after them
+// get zero rows. The live chunks are reversed back to front: a pass over
+// the chunk's rows from its checkpoint keeps each row's alpha (0 where the
+// row does not contribute) and entry transmittance in shared memory, so
+// the back-to-front pass evaluates no row; it overwrites them with sbar
+// and w, and the row sums are two products on the tensor cores (mma.sync
+// m16n8k8, TF32, float32 accumulation):
+//   moments  [KC x P] sbar . [P x 8] pixel basis (px^2, px py, py^2, px,
+//            py, 1, 0, 0),
+//   features [KC x P] w    . [P x 8] per-pixel output cotangents,
+// with a depth chain's moments as a third. Each float32 operand is split
+// into a TF32 big part and a TF32 remainder: the pixel basis holds small
+// integers (exact in TF32), so the moments take two passes (big.B,
+// small.B) and the features three (the remainder of B's too). Warp w
+// multiplies pixels [32w, 32w + 32); the warps' partial sums are added in
+// a fixed order (no atomics, so two launches give the same bits).
+//
+// Shared memory (floats): rows [KC][F] | ck [nch][P] checkpoints | A
+// [NA][KC][P + 4] operands (the row stride P + 4 makes the fragment loads
+// conflict-free) | gsh [P][GCOL] feature cotangents | bsum [nw][8] tile
+// sums. The warps' partial products [nw][KC][NC] reuse the operands' space
+// after the products, their totals [KC][NC] too.
+
+constexpr int NCOL = 8;  // columns of one product (n of m16n8k8)
+constexpr int GCOL = 4;  // feature columns with a cotangent (r, g, b, z)
+
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small up to 2^-22 |x|; x - big is exact in float32.
+__device__ __forceinline__ void tf32_split(float x, unsigned& big,
+                                           unsigned& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// mma.sync is a warp-collective: every lane of the warp must execute the
+// same instruction. The asm is volatile, with a memory clobber, so that it
+// stays in program order between the barriers around the products. Its
+// operand fetches must be branch-free too: when they were lane-dependent
+// selects (gid < 6 ? pmat[...] : 0), nvcc split the product loop on the
+// lane's gid into two copies, each with its own mma.sync, and the warp
+// hung at its first launch (scripts/port_sass_diff.py counts such HMMA).
+__device__ __forceinline__ void mma_tf32(float c[4], const unsigned a[4],
+                                         const unsigned b[2]) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1])
+      : "memory");
+}
+
+// Products of the chunk's reduction: the moments of sbar, the features of
+// w, and with DEPCHAIN the moments of the depth chain's sbar.
+template <bool DEPCHAIN>
+struct TcSpec {
+  static constexpr int NA = DEPCHAIN ? 3 : 2;  // operand arrays
+  static constexpr int NC = NA * NCOL;         // summed columns per row
+};
+
+// Forward blend of the tile's rows into o[5] (r, g, b, depth, acc),
+// storing the transmittance at each chunk entry in ck, as
+// forward_checkpointed does; the barrier before each chunk's staging also
+// reduces the exit test, so the walk stops once every pixel has
+// terminated. Returns the pixel's terminating row (kf if it never
+// terminates, 0 beyond the image edge); n_live receives the number of
+// chunks that some pixel walked into, beyond which every row's cotangent
+// is 0. Every thread of the CTA must call it.
+template <class Rows>
+__device__ __forceinline__ int forward_live(const Tile<Rows>& c, float* rows,
+                                            float* ck, int kf, float o[5],
+                                            int& n_live) {
+  float T = 1.0f;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) o[j] = 0.f;
+  int kend = c.pix_ok ? kf : 0;
+  n_live = 0;
+  for (int ch = 0; ch < n_chunks(kf); ++ch) {
+    if (!__syncthreads_or(kend == kf)) break;
+    n_live = ch + 1;
+    const int k0 = ch * KC;
+    const int n = min(KC, kf - k0);
+    ck[ch * c.P + c.p] = T;
+    stage_rows(rows, c, k0, n);
+    __syncthreads();
+    if (kend == kf) {
+      for (int i = 0; i < n; ++i) {
+        const float* r = rows + i * F;
+        const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
+        if (!e.ok) continue;
+        const float test = T * (1.0f - e.alpha);
+        if (test < T_EPS) {
+          kend = k0 + i;
+          break;
+        }
+        const float w = e.alpha * T;
+        o[0] += w * r[R0];
+        o[1] += w * r[G0];
+        o[2] += w * r[B0];
+        o[3] += w * r[CZ];
+        o[4] += w;
+        T = test;
+      }
+    }
+  }
+  return kend;
+}
+
+// Chunk ch's rows staged into `rows`, and each row's alpha (0 where the
+// row does not contribute) into A0 and entry transmittance into A1
+// ([KC][lda], zero beyond the list), walked again from the chunk's
+// checkpoint. Every thread of the CTA must call it.
+template <class Rows>
+__device__ __forceinline__ void record_chunk(const Tile<Rows>& c,
+                                             float* rows, const float* ck,
+                                             float* A0, float* A1, int lda,
+                                             int kf, int kend, int ch) {
+  const int k0 = ch * KC;
+  const int n = min(KC, kf - k0);
+  __syncthreads();
+  stage_rows(rows, c, k0, n);
+  __syncthreads();
+  float T = ck[ch * c.P + c.p];
+  for (int i = 0; i < KC; ++i) {
+    float al = 0.f, tx = 0.f;
+    if (i < n && k0 + i < kend) {
+      const RowEval e =
+          eval_row(rows + i * F, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
+      if (e.ok) {
+        al = e.alpha;
+        tx = T;
+        T *= (1.0f - al);
+      }
+    }
+    A0[i * lda + c.p] = al;
+    A1[i * lda + c.p] = tx;
+  }
+}
+
+// Reverse of a chunk (rows k0 .. k0 + n - 1, in `mine`) from the records
+// of record_chunk, and the row cotangents written to dd_t
+// (and ddd_t). g[5]: this pixel's output cotangent (r, g, b, depth, acc),
+// the depth entry read only when DEP; gd: the depth-only chain's cotangent
+// when DEPCHAIN. S, Sd: the suffix sums(wbar * w) of the rows after the
+// chunk, carried on to the chunk's first row.
+// Every thread of the CTA must call it.
+template <bool DEP, bool DEPCHAIN, class Rows>
+__device__ __forceinline__ void reverse_chunk_tc(
+    const Tile<Rows>& c, const float* mine, float* A, float* gsh, int lda,
+    int k0, int n, const float* pmat, const float g[5], float gd, float& S,
+    float& Sd, float* dd_t, float* ddd_t) {
+  static_assert(!(DEP && DEPCHAIN), "one depth form per kernel");
+  using Spec = TcSpec<DEPCHAIN>;
+  constexpr int NC = Spec::NC;
+  float* A0 = A;             // alpha -> sbar
+  float* A1 = A + KC * lda;  // entry transmittance -> w
+  float* A2 = A1 + KC * lda; // depth chain's sbar (DEPCHAIN)
+
+  // the feature product's B: this pixel's cotangent of r, g, b and of the
+  // depth column (the output's when DEP, the depth chain's when DEPCHAIN)
+  {
+    float* gp = gsh + c.p * GCOL;
+    gp[0] = g[0];
+    gp[1] = g[1];
+    gp[2] = g[2];
+    gp[3] = DEP ? g[3] : (DEPCHAIN ? gd : 0.f);
+  }
+
+  // back to front over the chunk's rows, from the suffix behind the chunk
+  for (int i = KC - 1; i >= 0; --i) {
+    const float al = A0[i * lda + c.p];
+    const float tx = A1[i * lda + c.p];
+    float sb = 0.f, w = 0.f, sbd = 0.f;
+    if (al > 0.f) {  // contributing
+      const float* r = mine + i * F;
+      float wbar = r[R0] * g[0] + r[G0] * g[1] + r[B0] * g[2];
+      if constexpr (DEP) wbar += r[CZ] * g[3];
+      wbar += g[4];
+      const float om = 1.0f - al;
+      w = al * tx;
+      const float obar = S / om;
+      const float abar = tx * wbar - obar;
+      S += wbar * w;
+      if (al < 0.99f) sb = al * abar;
+      if constexpr (DEPCHAIN) {
+        const float wbd = r[CZ] * gd;
+        const float obd = Sd / om;
+        const float abd = tx * wbd - obd;
+        Sd += wbd * w;
+        if (al < 0.99f) sbd = al * abd;
+      }
+    }
+    A0[i * lda + c.p] = sb;
+    A1[i * lda + c.p] = w;
+    if constexpr (DEPCHAIN) A2[i * lda + c.p] = sbd;
+  }
+  __syncthreads();
+
+  // the chunk's row sums on the tensor cores: warp w takes pixels
+  // [32 w, 32 w + 32) in four k-steps of 8, both 16-row halves. mma.sync
+  // needs the whole warp converged, so no operand fetch depends on the
+  // lane by a branch: every lane loads (the basis row min(gid, 5), the
+  // cotangent column gid & 3) and rows 6-7 of the basis and columns 4-7 of
+  // the cotangents are masked to 0 after the load
+  __syncwarp();
+  const int gid = c.lane >> 2, tig = c.lane & 3;
+  const unsigned bmask = 0u - (unsigned)(gid < 6);
+  const unsigned gmask = 0u - (unsigned)(gid < GCOL);
+  const float* prow = pmat + min(gid, 5) * c.P;
+  const float* gcol = gsh + (gid & (GCOL - 1));
+  float acc[Spec::NA][2][4];
+#pragma unroll
+  for (int q = 0; q < Spec::NA; ++q)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[q][mt][j] = 0.f;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int kk = c.warp * 32 + s * 8 + tig;
+    unsigned bp[2], gb[2], gs[2];
+    bp[0] = __float_as_uint(prow[kk]) & bmask;
+    bp[1] = __float_as_uint(prow[kk + 4]) & bmask;
+    tf32_split(__uint_as_float(__float_as_uint(gcol[kk * GCOL]) & gmask),
+               gb[0], gs[0]);
+    tf32_split(
+        __uint_as_float(__float_as_uint(gcol[(kk + 4) * GCOL]) & gmask),
+        gb[1], gs[1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int r0 = (mt * 16 + gid) * lda + kk;
+      const int r1 = r0 + 8 * lda;
+#pragma unroll
+      for (int q = 0; q < Spec::NA; ++q) {
+        const float* Aq = A + q * KC * lda;
+        unsigned ab[4], as[4];
+        tf32_split(Aq[r0], ab[0], as[0]);
+        tf32_split(Aq[r1], ab[1], as[1]);
+        tf32_split(Aq[r0 + 4], ab[2], as[2]);
+        tf32_split(Aq[r1 + 4], ab[3], as[3]);
+        if (q == 1) {  // features: remainders first, then the big parts
+          mma_tf32(acc[q][mt], as, gb);
+          mma_tf32(acc[q][mt], ab, gs);
+          mma_tf32(acc[q][mt], ab, gb);
+        } else {       // moments: the pixel basis is exact in TF32
+          mma_tf32(acc[q][mt], as, bp);
+          mma_tf32(acc[q][mt], ab, bp);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp has read the operands
+
+  // partial sums [nw][KC][NC] over the operands, then their totals
+  // [KC][NC] in a fixed order over the warps
+  float* part = A;
+  float* tot = A + c.nw * KC * NC;
+#pragma unroll
+  for (int q = 0; q < Spec::NA; ++q)
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      float* pr = part + (c.warp * KC + mt * 16 + gid) * NC + q * NCOL +
+                  2 * tig;
+      *reinterpret_cast<float2*>(pr) =
+          make_float2(acc[q][mt][0], acc[q][mt][1]);
+      *reinterpret_cast<float2*>(pr + 8 * NC) =
+          make_float2(acc[q][mt][2], acc[q][mt][3]);
+    }
+  __syncthreads();
+  for (int idx = c.p; idx < KC * NC; idx += c.P) {
+    float s = 0.f;
+    for (int w = 0; w < c.nw; ++w) s += part[w * KC * NC + idx];
+    tot[idx] = s;
+  }
+  __syncthreads();
+  // columns of tot per row: moments 0-5 | w g: r, g, b, depth 8-11 |
+  // depth chain's moments 16-21
+  if (c.p < n) {
+    const float* tr = tot + c.p * NC;
+    const float* r = mine + c.p * F;
+    const size_t row = (size_t)c.src(k0 + c.p) * F;
+    write_row(dd_t + row, r, c.x0, c.y0, tr, tr[8], tr[9], tr[10],
+              DEP ? tr[11] : 0.0f);
+    if constexpr (DEPCHAIN)
+      write_row(ddd_t + row, r, c.x0, c.y0, tr + 2 * NCOL, 0.f, 0.f, 0.f,
+                tr[11]);
+  }
+}
+
+// Row cotangents of the tile from its forward_live results (kend, n_live,
+// the checkpoints ck): zero rows beyond the live chunks, then each live
+// chunk back to front, recorded and reversed on the tensor cores. Every
+// thread of the CTA must call it.
+template <bool DEP, bool DEPCHAIN, class Rows>
+__device__ __forceinline__ void reverse_tile_tc(
+    const Tile<Rows>& c, float* rows, const float* ck, float* A, float* gsh,
+    int lda, int kf, int kend, int n_live, const float* pmat,
+    const float g[5], float gd, float* dd_t, float* ddd_t) {
+  for (int k = n_live * KC + c.p; k < kf; k += c.P) {
+    const size_t row = (size_t)c.src(k) * F;
+    zero_row(dd_t + row);
+    if constexpr (DEPCHAIN) zero_row(ddd_t + row);
+  }
+  float S = 0.f, Sd = 0.f;  // suffix sums of wbar * w (each chain)
+  for (int ch = n_live - 1; ch >= 0; --ch) {
+    record_chunk(c, rows, ck, A, A + KC * lda, lda, kf, kend, ch);
+    reverse_chunk_tc<DEP, DEPCHAIN>(c, rows, A, gsh, lda, ch * KC,
+                                    min(KC, kf - ch * KC), pmat, g, gd, S,
+                                    Sd, dd_t, ddd_t);
+  }
+}
+
+// Shared memory of a fused step's CTA, in bytes: rows [KC][F] | ck
+// [nch][P] | operands [NA][KC][P + 4] | gsh [P][GCOL] | bsum [nw][8].
+size_t reverse_tc_smem(int kf, int p, bool depchain) {
+  const int na = depchain ? 3 : 2;
+  return (size_t)(KC * F + n_chunks(kf) * p + na * KC * (p + 4) + p * GCOL +
+                  (p / 32) * 8) *
+         sizeof(float);
+}
+
 // Shared memory of the reverse machinery, in bytes.
 size_t reverse_smem(int kf, int p, int nv) {
   const int nw = p / 32;

@@ -17,7 +17,10 @@
 // (r, g, b, depth, acc, 0, 0, 0) per pixel.
 //
 // Design: one CTA per tile, one thread per pixel (P = tile*tile = 256 at the
-// shipped config), the shape of the CUDA 3DGS rasterizer. Rows are staged in
+// shipped config), the shape of the CUDA 3DGS rasterizer; the fused
+// first-order and mapping steps reverse only the chunks that some pixel
+// walks into and sum each row's moments and features on the tensor cores
+// (blend_common.cuh, "tensor-core reverse"). Rows are staged in
 // shared memory KC at a time; each thread walks them front to back with its
 // own transmittance in a register. What the TPU kernel needed for Mosaic
 // (tile batching, bf16x3 matmuls, block-diagonal feature matrices, K-chunk
@@ -35,7 +38,8 @@
 // FP32-to-HBM ratio of 20, so the FP32 pipes, not HBM, bound every kernel
 // (chip_smoke.py counts the pairs). The per-pixel early exit
 // (T * (1 - alpha) < 1e-4) skips the rows behind opaque surfaces, and a CTA
-// stops staging rows once every pixel has exited.
+// stops staging rows once every pixel has exited. In the fused steps row
+// sums by warp shuffles would serialise each CTA on its reverse.
 //
 // Numerics: the per-pixel early exit is exact, because T is non-increasing:
 // once T * (1 - a) < 1e-4 no later row can contribute (renderer.py:151-155).
@@ -84,18 +88,18 @@ __global__ void fo_grad_kernel(
     float* __restrict__ dd, float* __restrict__ dd_dep,
     float* __restrict__ sums, int kf, int width, int height, int use_huber,
     float delta, float two_delta, float delta_sq, float eps) {
-  constexpr int NV = RevSpec<false, RGBD>::NV;
   extern __shared__ float smem[];
   const auto c = load_tile(d, tx0, ty0, pmat, kf, width, height);
+  const int lda = c.P + 4;
   float* rows = smem;
   float* ck = rows + KC * F;
-  float* tex = ck + n_chunks(kf) * c.P;
-  float* red = tex + KC * c.P;
-  float* bsum = red + KC * c.nw * NV;
+  float* A = ck + n_chunks(kf) * c.P;
+  float* gsh = A + TcSpec<RGBD>::NA * KC * lda;
+  float* bsum = gsh + c.P * GCOL;
 
   float o[5];
   int n_live;
-  const int kend = forward_checkpointed(c, rows, ck, kf, o, n_live);
+  const int kend = forward_live(c, rows, ck, kf, o, n_live);
 
   // ---- residual chain and output cotangents (ops/losses semantics)
   const size_t px = (size_t)c.t * c.P + c.p;
@@ -137,8 +141,9 @@ __global__ void fo_grad_kernel(
   }
   tile_sums<5>(c, part, bsum, sums);
   const size_t base = (size_t)c.t * kf * F;
-  reverse_blend<false, RGBD>(c, rows, ck, tex, red, kf, kend, n_live, g, gd3,
-                             dd + base, RGBD ? dd_dep + base : nullptr);
+  reverse_tile_tc<false, RGBD>(c, rows, ck, A, gsh, lda, kf, kend, n_live,
+                               pmat, g, gd3, dd + base,
+                               RGBD ? dd_dep + base : nullptr);
 }
 
 // --------------------------------------------------- fused mapping step --
@@ -153,21 +158,21 @@ __global__ void fo_grad_kernel(
 // (map_grad_madd_kernel, the TPU kernel's with_madd variant).
 template <bool RGBD, class Rows>
 __device__ __forceinline__ void map_grad_tile(
-    const Tile<Rows>& c, float* smem, const float* __restrict__ gt,
-    const float* __restrict__ mask, const float* __restrict__ gtd,
-    const float* __restrict__ sc, float* __restrict__ dd,
-    float* __restrict__ sums, int kf, int use_exposure, float w_rgb,
-    float w_dep, float eps) {
-  constexpr int NV = RevSpec<RGBD, false>::NV;
+    const Tile<Rows>& c, float* smem, const float* __restrict__ pmat,
+    const float* __restrict__ gt, const float* __restrict__ mask,
+    const float* __restrict__ gtd, const float* __restrict__ sc,
+    float* __restrict__ dd, float* __restrict__ sums, int kf,
+    int use_exposure, float w_rgb, float w_dep, float eps) {
+  const int lda = c.P + 4;
   float* rows = smem;
   float* ck = rows + KC * F;
-  float* tex = ck + n_chunks(kf) * c.P;
-  float* red = tex + KC * c.P;
-  float* bsum = red + KC * c.nw * NV;
+  float* A = ck + n_chunks(kf) * c.P;
+  float* gsh = A + TcSpec<false>::NA * KC * lda;
+  float* bsum = gsh + c.P * GCOL;
 
   float o[5];
   int n_live;
-  const int kend = forward_checkpointed(c, rows, ck, kf, o, n_live);
+  const int kend = forward_live(c, rows, ck, kf, o, n_live);
 
   const size_t px = (size_t)c.t * c.P + c.p;
   const float e = use_exposure ? fabsf(sc[0]) + eps : 1.0f;
@@ -195,8 +200,9 @@ __device__ __forceinline__ void map_grad_tile(
     part[1] = fabsf(r_d);
   }
   tile_sums<4>(c, part, bsum, sums);
-  reverse_blend<RGBD, false>(c, rows, ck, tex, red, kf, kend, n_live, g, 0.f,
-                             dd + (size_t)c.t * kf * F, nullptr);
+  reverse_tile_tc<RGBD, false>(c, rows, ck, A, gsh, lda, kf, kend, n_live,
+                               pmat, g, 0.f, dd + (size_t)c.t * kf * F,
+                               nullptr);
 }
 
 template <bool RGBD>
@@ -209,8 +215,8 @@ __global__ void map_grad_kernel(
     int height, int use_exposure, float w_rgb, float w_dep, float eps) {
   extern __shared__ float smem[];
   map_grad_tile<RGBD>(load_tile(d, tx0, ty0, pmat, kf, width, height), smem,
-                      gt, mask, gtd, sc, dd, sums, kf, use_exposure, w_rgb,
-                      w_dep, eps);
+                      pmat, gt, mask, gtd, sc, dd, sums, kf, use_exposure,
+                      w_rgb, w_dep, eps);
 }
 
 // madd [T, kf]: 0 for a valid row, -1e30 for an invalid one, added to the
@@ -230,8 +236,8 @@ __global__ void map_grad_madd_kernel(
   const int t = blockIdx.x;
   const MaddRows src{d + (size_t)t * kf * F, madd + (size_t)t * kf};
   map_grad_tile<RGBD>(make_tile(t, tx0[t], ty0[t], pmat, src, width, height),
-                      smem, gt, mask, gtd, sc, dd, sums, kf, use_exposure,
-                      w_rgb, w_dep, eps);
+                      smem, pmat, gt, mask, gtd, sc, dd, sums, kf,
+                      use_exposure, w_rgb, w_dep, eps);
 }
 
 // ------------------------------------------------------------- blend VJP --
@@ -375,6 +381,16 @@ extern "C" int blend_fwd(const float* d, const float* tx0, const float* ty0,
   return (int)cudaGetLastError();
 }
 
+// A fused step's launch, one CTA per tile; returns its error.
+template <typename K, typename... Args>
+cudaError_t launch_fused(K kernel, int n_tiles, int p, size_t smem,
+                         cudaStream_t s, Args... args) {
+  const cudaError_t rc = launch_prepare(kernel, smem);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<n_tiles, p, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
 extern "C" int blend_fo_grad(const float* d, const float* tx0,
                              const float* ty0, const float* pmat,
                              const float* gt, const float* mask,
@@ -385,22 +401,15 @@ extern "C" int blend_fo_grad(const float* d, const float* tx0,
                              float eps, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (gtd) {
-    const size_t smem = reverse_smem(kf, p, RevSpec<false, true>::NV);
-    const cudaError_t rc = launch_prepare(fo_grad_kernel<true>, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    fo_grad_kernel<true><<<n_tiles, p, smem, s>>>(
-        d, tx0, ty0, pmat, gt, mask, gtd, sc, dd, dd_dep, sums, kf, width,
-        height, use_huber, delta, two_delta, delta_sq, eps);
-  } else {
-    const size_t smem = reverse_smem(kf, p, RevSpec<false, false>::NV);
-    const cudaError_t rc = launch_prepare(fo_grad_kernel<false>, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    fo_grad_kernel<false><<<n_tiles, p, smem, s>>>(
-        d, tx0, ty0, pmat, gt, mask, nullptr, sc, dd, nullptr, sums, kf,
-        width, height, use_huber, delta, two_delta, delta_sq, eps);
-  }
-  return (int)cudaGetLastError();
+  const size_t smem = reverse_tc_smem(kf, p, gtd != nullptr);
+  return (int)(gtd ? launch_fused(fo_grad_kernel<true>, n_tiles, p, smem, s,
+                                  d, tx0, ty0, pmat, gt, mask, gtd, sc, dd,
+                                  dd_dep, sums, kf, width, height, use_huber,
+                                  delta, two_delta, delta_sq, eps)
+                   : launch_fused(fo_grad_kernel<false>, n_tiles, p, smem, s,
+                                  d, tx0, ty0, pmat, gt, mask, gtd, sc, dd,
+                                  dd_dep, sums, kf, width, height, use_huber,
+                                  delta, two_delta, delta_sq, eps));
 }
 
 // madd: nullable [T, kf]; with it the raw rows d blend through
@@ -415,35 +424,58 @@ extern "C" int blend_map_grad(const float* d, const float* tx0,
                               float w_dep, float eps, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = reverse_smem(
-      kf, p, gtd ? RevSpec<true, false>::NV : RevSpec<false, false>::NV);
+  const size_t smem = reverse_tc_smem(kf, p, false);
   cudaError_t rc;
-  if (madd && gtd) {
-    rc = launch_prepare(map_grad_madd_kernel<true>, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    map_grad_madd_kernel<true><<<n_tiles, p, smem, s>>>(
-        d, madd, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, width,
-        height, use_exposure, w_rgb, w_dep, eps);
-  } else if (madd) {
-    rc = launch_prepare(map_grad_madd_kernel<false>, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    map_grad_madd_kernel<false><<<n_tiles, p, smem, s>>>(
-        d, madd, tx0, ty0, pmat, gt, mask, nullptr, sc, dd, sums, kf, width,
-        height, use_exposure, w_rgb, w_dep, eps);
-  } else if (gtd) {
-    rc = launch_prepare(map_grad_kernel<true>, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    map_grad_kernel<true><<<n_tiles, p, smem, s>>>(
-        d, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, width, height,
-        use_exposure, w_rgb, w_dep, eps);
-  } else {
-    rc = launch_prepare(map_grad_kernel<false>, smem);
-    if (rc != cudaSuccess) return (int)rc;
-    map_grad_kernel<false><<<n_tiles, p, smem, s>>>(
-        d, tx0, ty0, pmat, gt, mask, nullptr, sc, dd, sums, kf, width,
-        height, use_exposure, w_rgb, w_dep, eps);
-  }
-  return (int)cudaGetLastError();
+  if (madd && gtd)
+    rc = launch_fused(map_grad_madd_kernel<true>, n_tiles, p, smem, s, d,
+                      madd, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf,
+                      width, height, use_exposure, w_rgb, w_dep, eps);
+  else if (madd)
+    rc = launch_fused(map_grad_madd_kernel<false>, n_tiles, p, smem, s,
+                      d, madd, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums,
+                      kf, width, height, use_exposure, w_rgb, w_dep, eps);
+  else if (gtd)
+    rc = launch_fused(map_grad_kernel<true>, n_tiles, p, smem, s, d, tx0,
+                      ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, width,
+                      height, use_exposure, w_rgb, w_dep, eps);
+  else
+    rc = launch_fused(map_grad_kernel<false>, n_tiles, p, smem, s, d,
+                      tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, width,
+                      height, use_exposure, w_rgb, w_dep, eps);
+  return (int)rc;
+}
+
+template <typename K>
+cudaError_t fused_attrs(K kernel, int p, size_t smem, int* out) {
+  cudaFuncAttributes a;
+  cudaError_t rc = cudaFuncGetAttributes(&a, kernel);
+  if (rc == cudaSuccess) rc = launch_prepare(kernel, smem);
+  int n = 0;
+  if (rc == cudaSuccess)
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, p, smem);
+  out[0] = a.numRegs;
+  out[1] = (int)(smem + a.sharedSizeBytes);
+  out[2] = n;
+  return rc;
+}
+
+// Registers per thread, shared memory per CTA (bytes) and resident CTAs
+// per SM of the fused steps at list length kf and P = p, into out [6][3]:
+// fo_grad_kernel mono and RGB-D, map_grad_kernel mono and RGB-D,
+// map_grad_madd_kernel mono and RGB-D.
+extern "C" int blend_fused_attrs(int kf, int p, int* out) {
+  const size_t mono = reverse_tc_smem(kf, p, false);
+  cudaError_t rc[6] = {
+      fused_attrs(fo_grad_kernel<false>, p, mono, out),
+      fused_attrs(fo_grad_kernel<true>, p, reverse_tc_smem(kf, p, true),
+                  out + 3),
+      fused_attrs(map_grad_kernel<false>, p, mono, out + 6),
+      fused_attrs(map_grad_kernel<true>, p, mono, out + 9),
+      fused_attrs(map_grad_madd_kernel<false>, p, mono, out + 12),
+      fused_attrs(map_grad_madd_kernel<true>, p, mono, out + 15)};
+  for (cudaError_t r : rc)
+    if (r != cudaSuccess) return (int)r;
+  return 0;
 }
 
 extern "C" int blend_bwd(const float* d, const float* tx0, const float* ty0,

@@ -32,15 +32,20 @@ Kernels (TPU kernel replaced -> bound on the H100 -> design):
   over the CTA's warps in shared memory (exact integers in f32).
 - ``fo_grad_lists`` <- ``_fo_grad_kernel``; bound by FP32 operations
   (26 per walked pair and 43 more per contributing one, 64 for RGB-D;
-  40-49 per byte), and in practice by the per-row warp reductions. Forward pass with transmittance checkpoints
-  every 32 rows, per-pixel residual/Huber/output cotangent, then a
-  back-to-front pass per checkpoint chunk that carries the suffix
-  sum(wbar * w) and reduces each row's six conic moments and four colour
-  sums deterministically (warp shuffles, then shared memory); no atomics.
-  The RGB-D variant carries the depth chain in the same pass.
+  40-49 per byte; the row sums among them run on the tensor cores). One
+  CTA per tile: the forward stores the transmittance at each 32-row
+  chunk's entry and finds the chunks that some pixel walks into; the
+  per-pixel residual/Huber/output cotangent; then each live chunk, back to
+  front, is walked again from its checkpoint (alpha and transmittance
+  kept in shared memory) and reversed, carrying the suffix
+  sum(wbar * w), and each row's six conic moments and colour sums are
+  TF32 products on the tensor cores (float32 operands split into a big
+  part and a remainder), added over the warps in a fixed order; no
+  atomics. Chunks that no pixel walks into get zero rows. The RGB-D
+  variant carries the depth chain as a third product.
 - ``map_grad_lists`` <- ``_map_grad_kernel``, and with ``madd`` its
-  ``with_madd`` variant; bound by FP32 operations as ``fo_grad_lists``
-  (29 more per live contributing pair, 33 for RGB-D), one reverse chain
+  ``with_madd`` variant; bound and design as ``fo_grad_lists`` (29 more
+  operations per live contributing pair, 33 for RGB-D), one reverse chain
   even for RGB-D. ``madd`` [T, Kf] (0 valid, -1e30 invalid) is added to
   each raw row's log-opacity as the rows are staged, in the forward and
   the checkpointed reverse alike, so the caller makes no masked copy of
@@ -327,6 +332,19 @@ def _check_common(d, tx0, ty0, pmat):
     return n_tiles, kf, p
 
 
+# the fused steps' CTA keeps its operands for the tensor cores in shared
+# memory, with one thread per pixel at up to 95 registers: tiles up to 16 px
+_FUSED_MAX_P = 256
+
+
+def _check_fused(d, tx0, ty0, pmat):
+    n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
+    if p > _FUSED_MAX_P:
+        raise ValueError(f"pmat: P={p}; the fused steps take P up to "
+                         f"{_FUSED_MAX_P} (tiles up to 16 px)")
+    return n_tiles, kf, p
+
+
 def _lib():
     from .._build import library
 
@@ -386,7 +404,7 @@ def fo_grad_lists(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
         return fo_grad_lists_plain(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb,
                                    width, height, use_huber, delta, eps,
                                    gtd_t)
-    n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
+    n_tiles, kf, p = _check_fused(d, tx0, ty0, pmat)
     _check("gt_t", gt_t, (n_tiles, p, 3))
     _check("mask_t", mask_t, (n_tiles, p, 1))
     if gtd_t is not None:
@@ -486,7 +504,7 @@ def map_grad_lists(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
         return map_grad_lists_plain(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb,
                                     width, height, use_exposure, alpha, eps,
                                     gtd_t, px_frac, madd)
-    n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
+    n_tiles, kf, p = _check_fused(d, tx0, ty0, pmat)
     _check("gt_t", gt_t, (n_tiles, p, 3))
     _check("mask_t", mask_t, (n_tiles, p, 1))
     if gtd_t is not None:

@@ -11,24 +11,31 @@ checkout's nvcc flags, or this checkout's source without ``-fmad=false``
 flag so that its alpha and transmittance thresholds round as the plain
 PyTorch version's do). Every build must have the same C interface, except
 that a ``blend_map_grad`` without the ``madd`` argument (sources before
-the fused mapping step's madd variant) is called through an adapter; the
-madd variant is left out of the turns.
+the fused mapping step's madd variant) is called through an adapter, and
+the madd variant is then left out of the turns. ``blend_fused_attrs`` (a
+report of the fused steps' registers and shared memory, which the turns do
+not call) may be missing from the other builds.
 
 It prints each build's registers per kernel (``ptxas -v``), then runs
 chip_smoke's tracking and mapping kernel phases (kernels 1-6 at the main
-path's shapes, each held against its plain version) with the libraries in
-turns: each round runs every build once and then again in reverse order,
-starting one build later than the round before, so that over as many
-rounds as builds each build takes every place. It prints one JSON line per
-turn and kernel (time, bound, error, within tolerance), then per kernel the
-median time of each build over its turns and its ratio to the first other
-build, then the card's name and power limit. Needs one CUDA card and nvcc;
+path's shapes and the madd variant at its two, each held against its
+plain version) with the libraries in turns: each round runs every build
+once and then again in reverse order, starting one build later than the
+round before, so that over as many rounds as builds each build takes
+every place. It prints one JSON line per
+turn and kernel (both of chip_smoke's times, bound, error, within
+tolerance), then per kernel the median of each time for each build over
+its turns and its ratio to the first other build's, then the card's name
+and power limit. ``ms`` is the CUDA-event time of one call on an idle
+card, ``device_ms`` the device time of one call with the card kept busy
+(chip_smoke.kernel_ms). Needs one CUDA card and nvcc;
 imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import re
@@ -64,6 +71,20 @@ class _NoMaddInterface:
         return self._lib.blend_map_grad(*args[:7], *args[8:])
 
 
+def load(path: Path):
+    """The library at ``path`` with blend_lists' C interface, but for
+    ``blend_fused_attrs``, which the turns do not call and older builds
+    lack."""
+    from monogs_tpu_torch import _build
+
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _build._SIGNATURES["blend_lists"].items():
+        if fn != "blend_fused_attrs":
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def build(name: str, src: Path, flags: list[str]):
     """Build ``src`` with ``flags`` (and ``-Xptxas -v``) into this
     checkout's build directory as build ``name`` (two copies of one source
@@ -90,7 +111,7 @@ def build(name: str, src: Path, flags: list[str]):
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
             regs[fn] = int(m.group(1))
-    lib = _build.load(out, "blend_lists")
+    lib = load(out)
     if "madd" not in src.read_text():
         lib = _NoMaddInterface(lib)
     return lib, regs
@@ -127,6 +148,8 @@ def main():
     for name, (src, fl) in srcs.items():
         libs[name], regs = build(name, src, fl)
         print(json.dumps({"build": name, "registers": regs}), flush=True)
+    with_madd = not any(isinstance(lib, _NoMaddInterface)
+                        for lib in libs.values())
     e_exp, _ = cs.expf_ops()
 
     dev = torch.device("cuda")
@@ -134,7 +157,8 @@ def main():
     poses = poses_fn(3, 42)
     frame = cs.render_frames(torch, scene, poses[2:], intr, cfg,
                              with_depth=True)[0][0]
-    times: dict[str, dict[str, list[float]]] = {}
+    measures = ("ms", "device_ms")
+    times: dict[str, dict[str, dict[str, list[float]]]] = {}
     names = others + ["this"]
     order = []
     for r in range(args.rounds):
@@ -146,18 +170,25 @@ def main():
                                   frame, e_exp, strict=False)
         entries.update(cs.mapping_kernel_phase(torch, intr, cfg, scene,
                                                poses[1], frame, e_exp,
-                                               with_madd=False))
+                                               with_madd=with_madd))
         for e in entries.values():
-            times.setdefault(e["name"], {}).setdefault(name, []).append(
-                e["ms"])
+            for m in measures:
+                times.setdefault(m, {}).setdefault(e["name"], {}).setdefault(
+                    name, []).append(e[m])
             print(json.dumps({"turn": turn, "build": name, **{
-                k: e[k] for k in ("name", "ms", "bound_ms", "max_abs_err",
-                                  "within_tol")}}), flush=True)
+                k: e[k] for k in ("name", *measures, "bound_ms",
+                                  "max_abs_err", "within_tol")}}),
+                  flush=True)
     _build._LIBS["blend_lists"] = libs["this"]
-    for kernel, t in times.items():
-        med = {b: statistics.median(v) for b, v in t.items()}
-        print(json.dumps({"name": kernel, "median_ms": med, "over_first": {
-            b: m / med[others[0]] for b, m in med.items()}}), flush=True)
+    for kernel in times["ms"]:
+        line = {"name": kernel}
+        for m in measures:
+            med = {b: statistics.median(v)
+                   for b, v in times[m][kernel].items()}
+            line[f"median_{m}"] = med
+            line[f"{m}_over_first"] = {b: t / med[others[0]]
+                                       for b, t in med.items()}
+        print(json.dumps(line), flush=True)
     print(cs.smi_line(), flush=True)
 
 

@@ -28,6 +28,8 @@ cumprod):
 - tangents rtol 1e-3, atol 2e-4 of the channel's largest magnitude (the
   Pallas kernel's reductions err by up to 7e-5 of it)."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +41,7 @@ from monogs_tpu_torch.render import Intrinsics as TIntr
 from monogs_tpu_torch.render import RenderConfig as TCfg
 from monogs_tpu_torch.render import blend_lists as tbl
 from monogs_tpu_torch.render import renderer as tr
+from chip_smoke import TF32_SPLIT_FRAC, f64_excess
 from tests.test_torch_ops import both_gauss, npy, small_tau, surface_scene, t
 
 # 48 px is not a multiple of the 32 px macro: the bottom tile row lies
@@ -123,11 +126,14 @@ def test_blend_and_counts_parity(k_fine):
     np.testing.assert_array_equal(npy(cnts)[below], 0.0)
 
 
-@pytest.mark.parametrize("rgbd", [False, True])
-@pytest.mark.parametrize("k_fine", [96, 256])
-def test_fo_grad_parity(rgbd, k_fine):
-    """Fused first-order kernel: row cotangents of the Huber RGB chain (and
-    of the depth chain for RGB-D) and the per-tile partial sums."""
+FO_ARGS = dict(use_huber=True, delta=0.01, eps=1e-8)
+
+
+@functools.lru_cache(maxsize=None)
+def fo_case(rgbd, k_fine):
+    """(torch inputs of fo_grad_lists, JAX kernel's (dd, dd_dep, sums)) on
+    the rows of seed 3, with a noisy gt, a random mask and (RGB-D) a gt
+    depth; the JAX kernel runs once per case."""
     d, _, tx0, ty0, pmat = rows(k_fine, seed=3)
     ref_img = tbl.blend_lists(d, tx0, ty0, pmat, W, H)
     rng = np.random.default_rng(11)
@@ -140,32 +146,217 @@ def test_fo_grad_parity(rgbd, k_fine):
         gtd = (npy(ref_img[..., 3:4])
                * rng.uniform(0.97, 1.03, (n_t, p, 1))).astype(np.float32)
     ea, eb = np.float32(1.07), np.float32(0.015)
-    args = dict(use_huber=True, delta=0.01, eps=1e-8)
     jdd, jddd, jsums = jpl.fo_grad_lists_pallas(
         j(d), j(tx0), j(ty0), j(pmat), j(gt), j(mask), jnp.float32(ea),
         jnp.float32(eb), TILE, W, H, True,
-        gtd_t=None if gtd is None else j(gtd), **args)
-    dd, ddd, sums = tbl.fo_grad_lists(
-        d, tx0, ty0, pmat, t(gt), t(mask), torch.tensor(ea),
-        torch.tensor(eb), W, H, gtd_t=None if gtd is None else t(gtd),
-        **args)
-    assert_per_column(npy(dd), np.asarray(jdd), 1e-4, "dd")
-    np.testing.assert_allclose(npy(sums), np.asarray(jsums), rtol=1e-4,
-                               atol=1e-7)
+        gtd_t=None if gtd is None else j(gtd), **FO_ARGS)
+    args = (d, tx0, ty0, pmat, t(gt), t(mask), torch.tensor(ea),
+            torch.tensor(eb), None if gtd is None else t(gtd))
+    return args, tuple(None if x is None else np.asarray(x)
+                       for x in (jdd, jddd, jsums))
+
+
+@pytest.mark.parametrize("rgbd", [False, True])
+@pytest.mark.parametrize("k_fine", [96, 256])
+def test_fo_grad_parity(rgbd, k_fine):
+    """Fused first-order kernel: row cotangents of the Huber RGB chain (and
+    of the depth chain for RGB-D) and the per-tile partial sums."""
+    args, (jdd, jddd, jsums) = fo_case(rgbd, k_fine)
+    dd, ddd, sums = tbl.fo_grad_lists(*args[:8], W, H, gtd_t=args[8],
+                                      **FO_ARGS)
+    assert_per_column(npy(dd), jdd, 1e-4, "dd")
+    np.testing.assert_allclose(npy(sums), jsums, rtol=1e-4, atol=1e-7)
     # the Huber knee is crossed on both sides, so both slopes are exercised
     r = np.abs(npy(sums)[:, 1]).sum()
     assert r > 0 and np.abs(npy(dd)).max() > 0
-    f64 = [x.double() if x is not None else None for x in
-           (d, tx0, ty0, pmat, t(gt), t(mask), torch.tensor(ea),
-            torch.tensor(eb), None if gtd is None else t(gtd))]
-    dd64, ddd64, _ = tbl.fo_grad_lists(*f64[:8], W, H, gtd_t=f64[8], **args)
+    f64 = [x.double() if x is not None else None for x in args]
+    dd64, ddd64, _ = tbl.fo_grad_lists(*f64[:8], W, H, gtd_t=f64[8],
+                                       **FO_ARGS)
     assert_per_column(npy(dd), npy(dd64), 1e-4, "dd vs float64")
     if rgbd:
-        assert_per_column(npy(ddd), np.asarray(jddd), 4e-3, "dd_dep")
+        assert_per_column(npy(ddd), jddd, 4e-3, "dd_dep")
         assert_per_column(npy(ddd), npy(ddd64), 1e-4, "dd_dep vs float64")
         assert float(sums[:, 4].sum()) > 0
     else:
         assert ddd is None and jddd is None
+
+
+# ---- the arithmetic of the CUDA fused steps (csrc/blend_common.cuh,
+# record_chunk and reverse_chunk_tc), emulated: the row sums are TF32
+# products on the tensor cores with each float32 operand split into a TF32
+# big part and a TF32 remainder, and the rows of the chunks of 32 that no
+# pixel walks into get zeros without a reverse.
+
+KC = 32
+
+
+def tf32(x):
+    """float32 rounded to TF32 (10 explicit mantissa bits), to nearest with
+    ties away from zero (PTX cvt.rna.tf32.f32)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tc_product(a, b, b_exact, split=True):
+    """sum_p a[t, k, p] b[t, p, j] as the kernels' TF32 passes: a = big +
+    small; b exact in TF32 (the pixel basis): small.b + big.b; else b = bb
+    + bs: small.bb + big.bs + big.bb. The products of TF32 values are exact
+    in float64; the float32 accumulation of the tensor cores, in an order
+    the hardware picks, is stood for by float64 sums. ``split`` False: a
+    single pass, big.bb."""
+    ab = tf32(a)
+    a_s = tf32(a - ab)
+    if not split:
+        parts = [(ab, tf32(b))]
+    elif b_exact:
+        assert torch.equal(tf32(b), b)
+        parts = [(a_s, b), (ab, b)]
+    else:
+        bb = tf32(b)
+        parts = [(a_s, bb), (ab, tf32(b - bb)), (ab, bb)]
+    return sum(torch.einsum("tkp,tpj->tkj", x.double(), y.double())
+               for x, y in parts).float()
+
+
+def tc_reverse(f, pmat, g_outs, pix_ok, split=True):
+    """Row cotangents [T, K, F] from output cotangents g_outs [T, P, 8] as
+    the kernels compute them (_dd_from_gouts_plain's math); pix_ok [T, P]:
+    the pixels inside the image."""
+    w, feats, alpha, contrib = f["w"], f["feats"], f["alpha"], f["contrib"]
+    n_t, kf, p = w.shape
+    wbar = torch.einsum("tkf,tpf->tkp", feats, g_outs)
+    abar = (torch.where(contrib, f["t_excl"] * wbar, torch.zeros_like(w))
+            - tbl._excl_suffix_sum(wbar * w, 1) / f["one_minus"])
+    sbar = torch.where(contrib & (alpha < 0.99), alpha * abar,
+                       torch.zeros_like(w))
+    # a chunk is live if some pixel of the image walks into it, that is
+    # terminates at a row after the chunk's first or never
+    term = f["ok"] & ~f["contrib"]
+    stop = torch.where(term.any(1), term.int().argmax(1), kf)   # [T, P]
+    first = torch.arange(kf) // KC * KC
+    live = ((first[None, :, None] < stop[:, None, :])
+            & pix_ok[:, None, :]).any(-1)                       # [T, K]
+    assert not bool(((sbar != 0) & ~live[..., None]).any())
+    G = tc_product(sbar, pmat.T.expand(n_t, p, 6), True, split)
+    fbar = tc_product(w, g_outs[..., :4].contiguous(), False, split)
+    g0, g1, g2, g3, g4, g5 = G.unbind(-1)
+    a, b, c, ul, vl = f["a"], f["b"], f["c"], f["ul"], f["vl"]
+    z = torch.zeros_like(a)
+    cols = [z] * tbl._F
+    cols[tbl._U] = a * g3 + b * g4 - (a * ul + b * vl) * g5
+    cols[tbl._V] = b * g3 + c * g4 - (b * ul + c * vl) * g5
+    cols[tbl._CA] = -0.5 * g0 + ul * g3 - 0.5 * ul * ul * g5
+    cols[tbl._CB] = -g1 + vl * g3 + ul * g4 - ul * vl * g5
+    cols[tbl._CC] = -0.5 * g2 + vl * g4 - 0.5 * vl * vl * g5
+    cols[tbl._LOGO] = g5
+    cols[tbl._R0], cols[tbl._G0], cols[tbl._B0], cols[tbl._Z] = \
+        fbar.unbind(-1)
+    dd = torch.stack(cols, dim=-1)
+    return torch.where(live[..., None], dd, torch.zeros_like(dd))
+
+
+def fo_grad_tc(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, gtd_t, use_huber,
+               delta, eps, split=True):
+    """(dd, dd_dep) of the fused first-order step as the CUDA kernel
+    computes them (the residual and output cotangents of
+    fo_grad_lists_plain); ``split`` False: single TF32 passes."""
+    f = tbl._forward_plain(d, tx0, ty0, pmat, W, H)
+    pix_ok = ((tx0[:, None] + pmat[3] <= W - 1)
+              & (ty0[:, None] + pmat[4] <= H - 1))
+    outs = f["outs"]
+    col, acc = outs[..., 0:3], outs[..., 4:5]
+    e = torch.abs(ea) + eps
+    diff = e * col + eb - gt_t
+    am = acc * mask_t
+    r = am * diff
+    assert use_huber
+    ax = torch.abs(r)
+    safe = torch.sqrt(torch.clamp(2.0 * delta * ax - delta * delta,
+                                  min=1e-20))
+    small = ax < delta
+    hub = torch.where(small, r, torch.sign(r) * safe)
+    rbar = 2.0 * hub * torch.where(small, torch.ones_like(r), delta / safe)
+    z1 = torch.zeros_like(acc)
+    g_outs = torch.cat([rbar * am * e, z1,
+                        torch.sum(rbar * mask_t * diff, -1, keepdim=True),
+                        z1, z1, z1], dim=-1)
+    dd_dep = None
+    if gtd_t is not None:
+        r_d = torch.where((gtd_t > 0.01) & (acc > 0.95),
+                          outs[..., 3:4] - gtd_t, torch.zeros_like(gtd_t))
+        dd_dep = tc_reverse(f, pmat, torch.cat(
+            [z1, z1, z1, 2.0 * r_d, z1, z1, z1, z1], -1), pix_ok, split)
+    return tc_reverse(f, pmat, g_outs, pix_ok, split), dd_dep
+
+
+def test_tf32_rounding():
+    """tf32 keeps 10 mantissa bits, rounds to nearest with ties away from
+    zero, and big + remainder restores a float32 to 2^-22 of itself."""
+    one = 1.0 + 2.0 ** -10
+    x = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11), one,
+                      1.0 + 2.0 ** -11 - 2.0 ** -23, 3.0, 0.0],
+                     dtype=torch.float32)
+    np.testing.assert_array_equal(
+        npy(tf32(x)), np.float32([one, -one, one, 1.0, 3.0, 0.0]))
+    y = torch.from_numpy(np.random.default_rng(0).normal(
+        size=4096).astype(np.float32))
+    big = tf32(y)
+    rel = torch.abs((big.double() + tf32(y - big).double()) - y.double())
+    assert float((rel / torch.abs(y.double())).max()) <= 2.0 ** -22
+    assert float((torch.abs(big - y) / torch.abs(y)).max()) <= 2.0 ** -11
+
+
+@pytest.mark.parametrize("rgbd", [False, True])
+@pytest.mark.parametrize("k_fine", [96, 256])
+def test_fo_grad_tc_emulation(rgbd, k_fine):
+    """The fused first-order step's arithmetic on the card (TF32
+    big/remainder products, zero rows in chunks no pixel walks into) holds
+    against the plain version and the Pallas kernel within chip_smoke's
+    tolerances (dd and dd_dep rtol 1e-3 + 1e-4 of the column's largest
+    magnitude; the depth chain against Pallas 4e-3, as above)."""
+    args, (jdd, jddd, _) = fo_case(rgbd, k_fine)
+    dd, ddd = fo_grad_tc(*args, **FO_ARGS)
+    pdd, pddd, _ = tbl.fo_grad_lists_plain(*args[:8], W, H, gtd_t=args[8],
+                                           **FO_ARGS)
+    assert d_chunks(k_fine) > 1
+    assert_per_column(npy(dd), npy(pdd), 1e-4, "dd vs plain")
+    assert_per_column(npy(dd), jdd, 1e-4, "dd vs Pallas")
+    # the products do round: a single TF32 pass errs by 2^-11
+    assert not torch.equal(dd, pdd)
+    if rgbd:
+        assert_per_column(npy(ddd), npy(pddd), 1e-4, "dd_dep vs plain")
+        assert_per_column(npy(ddd), jddd, 4e-3, "dd_dep vs Pallas")
+        assert float(torch.abs(ddd).max()) > 0
+
+
+@pytest.mark.parametrize("rgbd", [False, True])
+@pytest.mark.parametrize("k_fine", [96, 256])
+def test_fo_grad_tc_precision(rgbd, k_fine):
+    """The bound that chip_smoke.py and the card tests hold the fused steps
+    to against the plain version in float64 (f64_excess at most
+    TF32_SPLIT_FRAC, 2^-14 of a column's largest magnitude beyond the
+    float32 plain version's own error) separates the kernels' split TF32
+    products from single TF32 passes, which err by about 2^-11 of a
+    product: the split meets it, a single pass does not."""
+    args, _ = fo_case(rgbd, k_fine)
+    f64 = [x.double() if x is not None else None for x in args]
+    dd64, ddd64, _ = tbl.fo_grad_lists_plain(*f64[:8], W, H, gtd_t=f64[8],
+                                             **FO_ARGS)
+    pdd, pddd, _ = tbl.fo_grad_lists_plain(*args[:8], W, H, gtd_t=args[8],
+                                           **FO_ARGS)
+    for split in (True, False):
+        dd, ddd = fo_grad_tc(*args, **FO_ARGS, split=split)
+        ex = [f64_excess(torch, dd, pdd, dd64)]
+        if rgbd:
+            ex.append(f64_excess(torch, ddd, pddd, ddd64))
+        if split:
+            assert max(ex) <= TF32_SPLIT_FRAC / 4, ex
+        else:
+            assert min(ex) > 2 * TF32_SPLIT_FRAC, ex
+
+
+def d_chunks(kf):
+    return (kf + KC - 1) // KC
 
 
 @pytest.mark.parametrize("k_fine", [96, 256])

@@ -13,6 +13,7 @@ order along K; sums over pixels in another order).
 import pytest
 import torch
 
+from chip_smoke import TF32_SPLIT_FRAC, as_f64, f64_excess
 from monogs_tpu_torch.data.synthetic import make_synthetic_scene
 from monogs_tpu_torch.ops import se3
 from monogs_tpu_torch.render import Intrinsics, RenderConfig
@@ -184,6 +185,113 @@ def test_map_grad_madd_on_card(card, rgbd, k_fine):
     m_dd, m_sums = bl.map_grad_lists(masked, *args, **kw)
     assert torch.equal(dd, m_dd) and torch.equal(sums, m_sums)
     assert float(psums[:, 0].sum()) > 0 and float(torch.abs(pdd).max()) > 0
+
+
+# ---- the fused steps' live-chunk walk and tensor-core row sums at the
+# shapes that stress them: a list length that is no multiple of the 32-row
+# chunk, 8 px tiles (P 64), an image that is no multiple of the tile (some
+# pixels, and whole tiles, beyond its edge), a tile whose rows are all
+# invalid and a tile whose pixels all terminate in the first chunk
+
+ODD = Intrinsics(fx=120.0, fy=120.0, cx=59.5, cy=44.5, width=120, height=90)
+
+
+def edge_rows(dev, k_fine, tile):
+    """(d, tx0, ty0, pmat, gt, mask, gtd) over every tile of the 120x90
+    frame; tile 0's rows are invalid, and tile 1 starts with three
+    tile-wide opaque rows (alpha 0.99), so each of its pixels terminates at
+    row 2."""
+    cfg = CFG._replace(k_fine=k_fine, tile=tile)
+    g = torch.Generator().manual_seed(0)
+    scene = make_synthetic_scene(g, n=3000, spread=2.0, depth_mean=3.0,
+                                 scale_min=0.03, scale_max=0.09)
+    scene = type(scene)(*(x.to(dev) for x in scene))
+    T = se3.se3_exp(torch.tensor([0.01, -0.02, 0.0, 0.01, 0.0, -0.01],
+                                 device=dev))
+    d = rr.frame_rows(scene, T, ODD, cfg)[0].clone()
+    tx0, ty0 = rr._tile_origins(ODD, cfg, dev)
+    pmat = rr._tile_pmat(cfg, dev)
+    d[0, :, rr._LOGO] = -1e30
+    wall = d[1, 0].clone()
+    wall[rr._U] = tx0[1] + tile / 2
+    wall[rr._V] = ty0[1] + tile / 2
+    wall[rr._CA], wall[rr._CB], wall[rr._CC] = 1e-4, 0.0, 1e-4
+    wall[rr._LOGO] = 0.0
+    d[1, :3] = wall
+    d = d.contiguous()
+    img = bl.blend_lists_plain(d, tx0, ty0, pmat, ODD.width, ODD.height)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    gt = (img[..., :3] + 0.03 + 0.03 * torch.randn(
+        img[..., :3].shape, generator=gen, device=dev)).contiguous()
+    mask = (torch.rand(img[..., :1].shape, generator=gen, device=dev)
+            > 0.2).float()
+    gtd = (img[..., 3:4] * 1.02 + 0.05).contiguous()
+    return d, tx0, ty0, pmat, gt, mask, gtd
+
+
+@pytest.mark.parametrize("shape", [(40, 16), (96, 16), (256, 16), (96, 8)])
+@pytest.mark.parametrize("kind", ["fo_grad", "fo_grad_rgbd", "map_grad",
+                                  "map_grad_rgbd"])
+def test_fused_steps_edges_on_card(card, kind, shape):
+    """Each fused step against its plain version, and in float64 within
+    chip_smoke's bound for the split TF32 products; two launches give the
+    same bits; the invalid tile and the terminated tile's rows after its
+    third get exact zeros."""
+    k_fine, tile = shape
+    d, tx0, ty0, pmat, gt, mask, gtd = edge_rows(card, k_fine, tile)
+    assert pmat.shape[1] == tile * tile
+    pix_ok = ((tx0[:, None] + pmat[3] <= ODD.width - 1)
+              & (ty0[:, None] + pmat[4] <= ODD.height - 1))
+    assert not bool(pix_ok.all()) and not bool(pix_ok.any(1).all())
+    ea = torch.tensor(1.07, device=card)
+    eb = torch.tensor(0.015, device=card)
+    rgbd = kind.endswith("rgbd")
+    if kind.startswith("fo_grad"):
+        args = (d, tx0, ty0, pmat, gt, mask, ea, eb, ODD.width, ODD.height)
+        kw = dict(use_huber=True, delta=0.01, eps=1e-8,
+                  gtd_t=gtd if rgbd else None)
+        fn, plain, s_atol = bl.fo_grad_lists, bl.fo_grad_lists_plain, 1e-6
+    else:
+        args = (d, tx0, ty0, pmat, gt, mask, ea, eb, ODD.width, ODD.height,
+                True, 0.9, 1e-8)
+        kw = dict(gtd_t=gtd if rgbd else None)
+        fn, plain, s_atol = bl.map_grad_lists, bl.map_grad_lists_plain, 1e-5
+    n0 = bl.LAUNCHES[kind]
+    got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **kw)
+    assert bl.LAUNCHES[kind] == n0 + 2
+    for x, y in zip(got, again):
+        assert x is None or torch.equal(x, y)
+    torch.testing.assert_close(got[-1], want[-1], rtol=1e-4, atol=s_atol)
+    kw64 = dict(kw, gtd_t=gtd.double() if rgbd else None)
+    want64 = plain(*as_f64(torch, args), **kw64)
+    for x, y, y64 in zip(got[:-1], want[:-1], want64[:-1]):
+        if y is None:
+            continue
+        assert_per_column(x, y, 1e-4)
+        assert f64_excess(torch, x, y, y64) <= TF32_SPLIT_FRAC
+        assert float(torch.abs(x[0]).max()) == 0.0
+        assert float(torch.abs(x[1, 3:]).max()) == 0.0
+    assert float(torch.abs(want[0][1, :2]).max()) > 0
+    assert float(torch.abs(want[0]).max()) > 0
+
+
+@pytest.mark.parametrize("kind", ["fo_grad", "map_grad"])
+def test_fused_steps_refuse_wide_tiles_on_card(card, kind):
+    """The fused steps take tiles up to 16 px: P 1024 is refused before
+    any launch."""
+    d, tx0, ty0, pmat, gt, mask, gtd = edge_rows(card, 96, 32)
+    ea = torch.tensor(1.07, device=card)
+    eb = torch.tensor(0.015, device=card)
+    n0 = bl.LAUNCHES[kind]
+    with pytest.raises(ValueError, match="P=1024"):
+        if kind == "fo_grad":
+            bl.fo_grad_lists(d, tx0, ty0, pmat, gt, mask, ea, eb, ODD.width,
+                             ODD.height, use_huber=True, delta=0.01,
+                             eps=1e-8)
+        else:
+            bl.map_grad_lists(d, tx0, ty0, pmat, gt, mask, ea, eb,
+                              ODD.width, ODD.height, True, 0.9, 1e-8)
+    assert bl.LAUNCHES[kind] == n0
 
 
 @pytest.mark.parametrize("k_fine", [96, 256])
