@@ -23,10 +23,13 @@ JAX. Phases, each of which exits non-zero on failure:
    k_macro 4096 / k_fine 256 shape of configs/synthetic/rgbd.yaml; and
    the mapping step's madd variant on raw rows at both mapping shapes,
    also bit for bit against the step on the same rows pre-masked; the
-   fused first-order and mapping steps (and madd) are launched twice and
-   must give the same bits, are held to their plain version in float64
-   (``f64_excess``), and their registers, shared memory per CTA and
-   resident CTAs per SM are logged and added to their kernel entries;
+   fused first-order and mapping steps (and madd), the blend VJP and
+   jvp8 are launched twice and must give the same bits, the kernels on
+   the tensor-core reverse (the fused steps and the VJP) are held to
+   their plain version in float64 (``f64_excess``), and their registers,
+   shared memory per CTA and resident CTAs per SM are logged and added to
+   their kernel entries; then the list kernels again at 32 px tiles (P
+   1024, entries tagged "@tile32");
 3. tracking path: render the 22 frames of a jittered orbit around a
    100k-Gaussian synthetic scene through the port's ``render``, track a
    20-frame monocular chain with the shipped tracking configuration
@@ -52,7 +55,11 @@ JAX. Phases, each of which exits non-zero on failure:
    branch from the same state, then 2 RGB-D io_batch iterations;
 7. A/B tracking path: 3 frames of the mono chain on each of the unfused
    first order over lists, "xla" with bin_margin 0 (linearised second
-   order) and "pallas" with bin_margin 0 (first order only).
+   order) and "pallas" with bin_margin 0 (first order only);
+8. BA reproducibility: one BA iteration of the mapping path's window run
+   three times from one saved state on the default fused branch (all
+   tiles and a quarter) and on each mapping knob; every tensor of the map
+   and the window's cameras must come out with the same bits.
 Each path's launch counters are zeroed just before it and read just after.
 
 Output, one JSON object per line: each path's metrics, then
@@ -89,7 +96,10 @@ def kernel_tc_ops(name, n):
     mapping step's or the first-order step's depth chain) and the six
     conic moments and their sums (12 per live pair, 24 with the depth
     chain). Counted once, as the function needs them: the split into TF32
-    big parts and remainders is the design's cost."""
+    big parts and remainders is the design's cost. The blend VJP's row
+    sums run on the tensor cores too (since its redesign), but its bound
+    stays the one of its function's FP32 operations, so that it compares
+    with its earlier measurements."""
     live, contrib = n["live"], n["contrib"]
     return {
         "fo_grad": 6 * contrib + 12 * live,
@@ -248,9 +258,11 @@ KERNELS = {
                      "sums rtol 1e-4; two launches bit-identical; "
                      "f64_excess <= 2^-14"),
     "jvp8": (f"{REPLACES}:794 (_jvp8_kernel)",
-             "outs as fwd; touts rtol 1e-3 + 2e-4 x channel max"),
+             "outs as fwd; touts rtol 1e-3 + 2e-4 x channel max; two "
+             "launches bit-identical; f64_excess <= 2^-14"),
     "bwd": (f"{REPLACES}:451 (_bwd_kernel)",
-            "dd rtol 1e-3 + 1e-4 x column max"),
+            "dd rtol 1e-3 + 1e-4 x column max; two launches "
+            "bit-identical; f64_excess <= 2^-14"),
     "map_grad": (f"{REPLACES}:636 (_map_grad_kernel)",
                  "dd rtol 1e-3 + 1e-4 x column max; sums rtol 1e-4 + 1e-4; "
                  "two launches bit-identical; f64_excess <= 2^-14"),
@@ -356,14 +368,15 @@ def restore_launches(saved):
             c[k] = saved[k]
 
 
+# the kernels on the tensor-core reverse, in blend_fused_attrs' order
 FUSED_KERNELS = ("fo_grad", "fo_grad_rgbd", "map_grad", "map_grad_rgbd",
-                 "map_grad_madd", "map_grad_madd_rgbd")
+                 "map_grad_madd", "map_grad_madd_rgbd", "bwd")
 
 
 def fused_attrs(kf=96, p=256):
     """{kind: registers per thread, shared memory per CTA and resident CTAs
-    per SM} of the fused steps' kernels at list length kf and P = p, from
-    the library."""
+    per SM} of the tensor-core reverse kernels at list length kf and P = p,
+    from the library."""
     import ctypes
 
     from monogs_tpu_torch import _build
@@ -597,19 +610,15 @@ def record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
         f"{entries[name]['bound_by']}, max abs error {err:.3e}")
 
 
-def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
-                 strict=True):
-    """Run each kernel at the main path's shapes against its plain
-    version, on rows of ``scene`` binned at ``pose`` and the ground truth
-    (image, mask and depth) of ``frame``; returns {name: entry}. Raises if
-    a kernel disagrees, unless ``strict`` is false: each entry then says
-    whether it held (``within_tol``). ``e_exp``: expf's operations."""
-    from monogs_tpu_torch.render import blend_lists as bl
+def tracking_rows(torch, intr, cfg, tcfg, scene, pose):
+    """The tracking kernels' inputs at ``pose``: (full-frame rows, tile
+    origins, pixel basis, the first-order tile subset (``tcfg``'s
+    fraction, drawn from seed 1), its rows, its rows and row tangents for
+    jvp8)."""
     from monogs_tpu_torch.render import renderer as rr
     from monogs_tpu_torch.render.renderer import TileLists
 
     dev = pose.device
-    W, H = intr.width, intr.height
     cfg_t = cfg._replace(with_n_touched=False)
     pmat = rr._tile_pmat(cfg, dev)
     tx0, ty0 = rr._tile_origins(intr, cfg, dev)
@@ -623,11 +632,30 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
         tsel = torch.randperm(n_fine, generator=g, device=dev)[:n_sub]
         sub = TileLists(idx=lists.idx[tsel], vld=lists.vld[tsel])
         d_sub = rr.tile_rows(scene, pose, intr, cfg_t, sub)
-        txs, tys = tx0[tsel], ty0[tsel]
+    d_j, d_tan = rr.tile_rows_jvp(scene, pose, intr, cfg_t, sub)
+    return d_full, tx0, ty0, pmat, tsel, d_sub, d_j, d_tan
+
+
+def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
+                 strict=True, tag="", plain_reps=20):
+    """Run each kernel at the main path's shapes against its plain
+    version, on rows of ``scene`` binned at ``pose`` and the ground truth
+    (image, mask and depth) of ``frame``; returns {name: entry}. Raises if
+    a kernel disagrees, unless ``strict`` is false: each entry then says
+    whether it held (``within_tol``). ``e_exp``: expf's operations;
+    ``tag`` is appended to each entry's name (another ``cfg.tile``)."""
+    from monogs_tpu_torch.render import blend_lists as bl
+    from monogs_tpu_torch.render import renderer as rr
+
+    dev = pose.device
+    W, H = intr.width, intr.height
+    d_full, tx0, ty0, pmat, tsel, d_sub, d_j, d_tan = tracking_rows(
+        torch, intr, cfg, tcfg, scene, pose)
+    txs, tys = tx0[tsel], ty0[tsel]
+    with torch.no_grad():
         gt = rr.tile_images(frame.gt_image, intr, cfg)[tsel].contiguous()
         mask = rr.tile_images(frame.mapping_mask, intr, cfg)[tsel].contiguous()
         gtd = rr.tile_images(frame.gt_depth, intr, cfg)[tsel].contiguous()
-    d_j, d_tan = rr.tile_rows_jvp(scene, pose, intr, cfg_t, sub)
     ea = torch.tensor(1.0, device=dev)
     eb = torch.tensor(0.0, device=dev)
     fo = dict(use_huber=True, delta=tcfg.huber_delta, eps=1e-8)
@@ -637,8 +665,9 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
     entries = {}
 
     def record(name, fn, plain, err, ok, in_bytes, out_bytes, pairs):
-        record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
-                      out_bytes, pairs, e_exp, strict)
+        record_kernel(torch, entries, name + tag, fn, plain, err, ok,
+                      in_bytes, out_bytes, pairs, e_exp, strict,
+                      plain_reps)
 
     inputs = (tx0, ty0, pmat)
     # 1. forward blend over the whole frame
@@ -697,23 +726,32 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
                                                             **fo),
                err, ok, nbytes(d_sub, *sub_in, gd) + 8,
                nbytes(dd, ddd, sums), pairs_sub)
-        entries[name]["f64_excess"] = ex
+        entries[name + tag]["f64_excess"] = ex
     del dd, ddd, sums, pdd, pddd, psums
 
     # 4. primal plus six pose tangents
     pairs_j = pair_counts(torch, bl, d_j, txs, tys, pmat, W, H)
     outs, touts = bl.blend_lists_jvp8(d_j, d_tan, txs, tys, pmat, W, H)
+    again = bl.blend_lists_jvp8(d_j, d_tan, txs, tys, pmat, W, H)
+    check(bool(torch.equal(outs, again[0]))
+          and bool(torch.equal(touts, again[1])), "jvp8: two launches differ")
+    del again
     p_outs, p_touts = bl.blend_lists_jvp8_plain(d_j, d_tan, txs, tys, pmat,
                                                 W, H)
     e1, ok1 = outs_err(torch, outs, p_outs)
     e2, ok2 = per_column_err(torch, touts, p_touts, 2e-4)
+    # the tangent sums are fused multiply-adds in another order than the
+    # plain version's: held to float64 as the tensor-core sums are
+    ex = f64_excess(torch, touts, p_touts, bl.blend_lists_jvp8_plain(
+        *as_f64(torch, (d_j, d_tan, txs, tys, pmat)), W, H)[1])
     check(float(torch.abs(p_touts).max()) > 0, "jvp8: zero tangents")
     record("jvp8",
            lambda: bl.blend_lists_jvp8(d_j, d_tan, txs, tys, pmat, W, H),
            lambda: bl.blend_lists_jvp8_plain(d_j, d_tan, txs, tys, pmat,
                                              W, H),
-           max(e1, e2), ok1 and ok2, nbytes(d_j, d_tan, txs, tys, pmat),
-           nbytes(outs, touts), pairs_j)
+           max(e1, e2), ok1 and ok2 and ex <= TF32_SPLIT_FRAC,
+           nbytes(d_j, d_tan, txs, tys, pmat), nbytes(outs, touts), pairs_j)
+    entries["jvp8" + tag]["f64_excess"] = ex
     return entries
 
 
@@ -731,7 +769,7 @@ def l1_cotangent(torch, outs, gt, W, H):
 
 
 def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
-                         with_madd=True):
+                         with_madd=True, tag="", plain_reps=20, strict=True):
     """The mapping path's kernels against their plain versions: the blend
     VJP over the whole frame with a real colour-refinement cotangent (L1
     of the render against the frame, on a grey background so that the acc
@@ -742,7 +780,10 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
     tiles, raw rows of the margin lists, whose empty slots hold Gaussian
     0's row) at both shapes, mono and RGB-D, against its plain version
     and bit for bit against the step without madd on the rows
-    pre-masked."""
+    pre-masked. The VJP and the mapping steps are launched twice and must
+    give the same bits, and are held to their plain version in float64
+    (``f64_excess``). ``tag`` is appended to each entry's name; ``strict``
+    as in kernel_phase."""
     from monogs_tpu_torch.render import Intrinsics
     from monogs_tpu_torch.render import blend_lists as bl
     from monogs_tpu_torch.render import renderer as rr
@@ -752,8 +793,8 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
     entries = {}
 
     def record(name, fn, plain, err, ok, in_bytes, out_bytes, pairs):
-        record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
-                      out_bytes, pairs, e_exp)
+        record_kernel(torch, entries, name + tag, fn, plain, err, ok,
+                      in_bytes, out_bytes, pairs, e_exp, strict, plain_reps)
 
     # 1. blend VJP, Tf 1280
     cfg_t = cfg._replace(with_n_touched=False)
@@ -767,13 +808,20 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
                               rr.tile_images(frame.gt_image, intr, cfg), W,
                               H)
     dd = bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W, H)
+    check(bool(torch.equal(dd, bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs,
+                                                  W, H))),
+          "bwd: two launches differ")
     want = bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H)
     err, ok = per_column_err(torch, dd, want, 1e-4)
+    ex = f64_excess(torch, dd, want, bl.blend_lists_vjp_plain(
+        *as_f64(torch, (d, tx0, ty0, pmat, g_outs)), W, H))
+    ok = ok and ex <= TF32_SPLIT_FRAC
     check(float(torch.abs(want).max()) > 0, "bwd: zero row cotangents")
     record("bwd", lambda: bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W, H),
            lambda: bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H),
            err, ok, nbytes(d, tx0, ty0, pmat, g_outs), nbytes(dd),
            pair_counts(torch, bl, d, tx0, ty0, pmat, W, H))
+    entries["bwd" + tag]["f64_excess"] = ex
     del dd, want, outs, g_outs
 
     # 2. fused mapping step
@@ -850,7 +898,7 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
                       kw.get("madd")) + 8,
                nbytes(got, sums),
                pair_counts(torch, bl, dm, txf[ts], tyf[ts], pm, Wc, Hc))
-        entries[name]["f64_excess"] = ex
+        entries[name + tag]["f64_excess"] = ex
 
     n_fine = tx0.shape[0]
     n_sub = max(8, int(n_fine * 0.25) // 8 * 8)
@@ -870,6 +918,21 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
             map_grad_case(base, intr, cfg, n_fine, rgbd, madd=True)
             map_grad_case(f"{base}@320x240_kf256", intr_s, cfg_s, n_fine_s,
                           rgbd, madd=True)
+    return entries
+
+
+def tile32_kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp):
+    """The list kernels at 32 px tiles (P 1024: the tensor-core reverse
+    walks four pixel slices of 256, jvp8 and the forward blends run 1024
+    threads a CTA), on the same scene, pose and frame as the 16 px kernel
+    phases and at the same tile fractions: kernel_phase's and
+    mapping_kernel_phase's checks, entries tagged "@tile32"."""
+    cfg32 = cfg._replace(tile=32)
+    entries = kernel_phase(torch, intr, cfg32, tcfg, scene, pose, frame,
+                           e_exp, tag="@tile32", plain_reps=3)
+    entries.update(mapping_kernel_phase(torch, intr, cfg32, scene, pose,
+                                        frame, e_exp, tag="@tile32",
+                                        plain_reps=3))
     return entries
 
 
@@ -1608,6 +1671,84 @@ def macro_path(torch, intr, cfg, scene, frames, poses):
     return out, launches
 
 
+# ---------------------------------------------- BA reproducibility path
+
+def state_tensors(r):
+    """{name: tensor} of a map_iters result: every tensor of the map (its
+    parameters, Adam moments, densification statistics and slots), the
+    window's poses and exposures, its Adam state and the visibility."""
+    out = {}
+
+    def walk(prefix, x):
+        if hasattr(x, "_fields"):
+            for k in x._fields:
+                walk(f"{prefix}.{k}", getattr(x, k))
+        elif isinstance(x, (tuple, list)):
+            for i, v in enumerate(x):
+                walk(f"{prefix}[{i}]", v)
+        elif hasattr(x, "shape"):
+            out[prefix] = x
+
+    walk("m", r.m)
+    walk("cams", r.cams)
+    walk("kf_adam", r.kf_adam)
+    out["visibility"] = r.visibility
+    return out
+
+
+def ba_repro_path(torch, intr, cfg, scene, frames, poses, strict=True):
+    """One BA iteration run three times from one saved state (the mapping
+    path's window, iteration 101, the same generator seed) on the default
+    fused branch at tile_frac 1.0 and 0.25 and on each A/B knob (io_batch,
+    scatter_segsum, gather_first at 0.25, batch_render): every tensor of
+    the map and of the window's cameras must come out bit for bit the same
+    (``state_tensors``), unless ``strict`` is false. Also the ms of one
+    iteration (median of the three runs)."""
+    from monogs_tpu_torch.models import gaussian_map as gm
+    from monogs_tpu_torch.slam import mapping as mp
+
+    dev = scene.xyz.device
+    hyper = gm.MapHyper()
+    mc = mp.MapConfig(monocular=True, window_size=8, pose_window=5)
+    m0, cams = map_window(torch, scene, frames, poses, views=MAP_VIEWS)
+    branches = {
+        "default": mc,
+        "default_tile_frac_0.25": mc._replace(tile_frac=0.25),
+        "io_batch": mc._replace(io_batch=True),
+        "scatter_segsum": mc._replace(scatter_segsum=True),
+        "gather_first": mc._replace(gather_first=True, tile_frac=0.25),
+        "batch_render": mc._replace(batch_render=True, fused_grad=False),
+    }
+
+    def one(mcfg):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = mp.map_iters(m0, cams, 1, 100, gen, intr, cfg, mcfg, hyper)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, state_tensors(r)
+
+    out = {}
+    for name, mcfg in branches.items():
+        one(mcfg)                                  # warm-up
+        runs = [one(mcfg) for _ in range(3)]
+        ref = runs[0][1]
+        differ = sorted({k for _, st in runs[1:] for k, x in st.items()
+                         if not bool(torch.equal(x, ref[k]))})
+        out[name] = dict(
+            bit_identical=not differ, differing=differ,
+            max_abs_diff={k: max(float(torch.abs(
+                st[k].double() - ref[k].double()).max())
+                for _, st in runs[1:]) for k in differ},
+            ms_per_iter=1000.0 * statistics.median(t for t, _ in runs))
+        log(f"ba repro {name}: {json.dumps(out[name])}")
+    bad = [k for k, v in out.items() if not v["bit_identical"]]
+    check(not strict or not bad,
+          f"BA iterations from one state differ on {bad}: "
+          f"{ {k: out[k]['differing'] for k in bad} }")
+    return out
+
+
 # ------------------------------------------------------- A/B-knob paths
 
 AB_ITERS = 5            # BA iterations of each mapping knob
@@ -1638,9 +1779,9 @@ def ab_mapping_path(torch, intr, cfg, scene, frames, poses):
     unfused view by view for batch_render):
     ms per iteration by the delta method ((t(AB_ITERS) - t(1)) /
     (AB_ITERS - 1)), launches, host syncs per iteration and peak memory;
-    then 2 RGB-D io_batch iterations. index_add_ on the card adds with
-    atomics, so the knobs differ from the default by float32
-    reassociation, and Adam's first steps move every parameter with a
+    then 2 RGB-D io_batch iterations. The knobs add each Gaussian's row
+    cotangents in another order than the default branch (a fixed one), so
+    they differ from it by float32 reassociation, and Adam's first steps move every parameter with a
     nonzero gradient by its learning rate times the gradient's sign: a
     gradient near 0 whose sign the rounding flips moves its entry by up to
     two steps. Held: at most 1 % of each parameter's entries beyond 1e-4,
@@ -1802,9 +1943,11 @@ def run(scene_seed):
     smi = smi_line()
     log(f"built in {build_s:.1f} s on {smi}")
     attrs = fused_attrs()
+    attrs32 = fused_attrs(p=1024)
     for kind, a in attrs.items():
         log(f"{kind}: {a['registers']} registers, {a['smem_bytes']} B of "
-            f"shared memory per CTA (Kf 96), {a['ctas_per_sm']} CTAs per SM")
+            f"shared memory per CTA (Kf 96), {a['ctas_per_sm']} CTAs per SM; "
+            f"at P 1024: {attrs32[kind]}")
 
     dev = torch.device("cuda")
     intr, cfg, tcfg, scene, poses_fn = make_bench(torch, dev, scene_seed)
@@ -1830,6 +1973,8 @@ def run(scene_seed):
                          scene, poses[1], frame, e_exp))
     entries.update(timed("kernels_macro", macro_kernel_phase, intr, cfg,
                          scene, poses[1], poses[2], frame, e_exp))
+    entries.update(timed("kernels_tile32", tile32_kernel_phase, intr, cfg,
+                         tcfg, scene, poses[1], frame, e_exp))
     summary, frames, chain_poses = timed("tracking_path", main_path, intr,
                                          cfg, tcfg, scene, poses_fn)
     mapping, map_launches = timed("mapping_path", mapping_path, intr, cfg,
@@ -1840,9 +1985,12 @@ def run(scene_seed):
                                 cfg, scene, frames, chain_poses)
     ab_track = timed("ab_tracking_path", ab_tracking_path, intr, cfg, tcfg,
                      scene, frames, chain_poses)
+    repro = timed("ba_repro_path", ba_repro_path, intr, cfg, scene, frames,
+                  chain_poses)
     for name, e in entries.items():
         kind = name.split("@")[0]
-        e.update(attrs.get(kind, {}))
+        e.update((attrs32 if name.endswith("@tile32") else attrs).get(kind,
+                                                                      {}))
         e["launches"] = (summary["launches"][kind] if kind in TRACK_KERNELS
                          else macro_launches[kind] if kind in MACRO_KERNELS
                          else ab_launches[kind] if kind in AB_MAP_KERNELS
@@ -1863,6 +2011,7 @@ def run(scene_seed):
     ab_track["device"] = smi
     print(json.dumps({"ab_mapping_path": ab_map}), flush=True)
     print(json.dumps({"ab_tracking_path": ab_track}), flush=True)
+    print(json.dumps({"ba_repro_path": dict(repro, device=smi)}), flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -60,6 +60,30 @@ __device__ __forceinline__ void stage_span(float* dst, const float* src,
   for (int i = threadIdx.x; i < n_floats; i += blockDim.x) dst[i] = src[i];
 }
 
+// Asynchronous copy of n_floats (a multiple of 4, both ends 16-byte
+// aligned) from global to shared memory by the CTA's threads, 16 bytes
+// each; cp_async_commit closes a group of them, cp_async_wait<N> waits
+// until at most N of this thread's groups are in flight (a barrier after
+// it makes every thread's copies visible).
+__device__ __forceinline__ void stage_span_async(float* dst, const float* src,
+                                                 int n_floats) {
+  for (int i = 4 * threadIdx.x; i < n_floats; i += 4 * blockDim.x) {
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;"
+                 :: "r"(s), "l"(src + i) : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
 __device__ __forceinline__ void store8(float* out, const float* v5) {
   float4* o = reinterpret_cast<float4*>(out);
   o[0] = make_float4(v5[0], v5[1], v5[2], v5[3]);
@@ -108,10 +132,14 @@ struct Tile {
   Rows src;
 };
 
+// np: the pixels of the tile, the row stride of pmat [6][np]; thread p
+// holds pixel p (a fused step's CTA with pixel slices holds more, see
+// "tensor-core reverse").
 template <class Rows>
 __device__ __forceinline__ Tile<Rows> make_tile(int t, float x0, float y0,
                                                 const float* pmat, Rows src,
-                                                int width, int height) {
+                                                int width, int height,
+                                                int np) {
   Tile<Rows> c;
   c.P = blockDim.x;
   c.nw = c.P >> 5;
@@ -122,7 +150,7 @@ __device__ __forceinline__ Tile<Rows> make_tile(int t, float x0, float y0,
   c.x0 = x0;
   c.y0 = y0;
 #pragma unroll
-  for (int j = 0; j < 6; ++j) c.pm[j] = pmat[j * c.P + c.p];
+  for (int j = 0; j < 6; ++j) c.pm[j] = pmat[j * np + c.p];
   c.pxl = c.pm[3];
   c.pyl = c.pm[4];
   c.pix_ok = (c.x0 + c.pxl <= (float)(width - 1)) &&
@@ -131,15 +159,32 @@ __device__ __forceinline__ Tile<Rows> make_tile(int t, float x0, float y0,
   return c;
 }
 
+// One thread per pixel of the tile.
+template <class Rows>
+__device__ __forceinline__ Tile<Rows> make_tile(int t, float x0, float y0,
+                                                const float* pmat, Rows src,
+                                                int width, int height) {
+  return make_tile(t, x0, y0, pmat, src, width, height, (int)blockDim.x);
+}
+
 // The tile of a list kernel: CTA t blends its own rows d[t] [kf][F].
 __device__ __forceinline__ Tile<OwnRows> load_tile(const float* d,
                                                    const float* tx0,
                                                    const float* ty0,
                                                    const float* pmat, int kf,
-                                                   int width, int height) {
+                                                   int width, int height,
+                                                   int np) {
   const int t = blockIdx.x;
   return make_tile(t, tx0[t], ty0[t], pmat, OwnRows{d + (size_t)t * kf * F},
-                   width, height);
+                   width, height, np);
+}
+
+__device__ __forceinline__ Tile<OwnRows> load_tile(const float* d,
+                                                   const float* tx0,
+                                                   const float* ty0,
+                                                   const float* pmat, int kf,
+                                                   int width, int height) {
+  return load_tile(d, tx0, ty0, pmat, kf, width, height, (int)blockDim.x);
 }
 
 // Stage rows k0 .. k0 + n - 1 of the tile's row source into dst [n][F].
@@ -228,8 +273,9 @@ __device__ __forceinline__ void forward_walk(const Tile<Rows>& c, float* rows,
 }
 
 // ------------------------------------------------------- reverse machinery --
-// Shared by the kernels that pull output cotangents back to the rows (fused
-// first-order step, fused mapping step, blend VJPs): a forward pass that
+// Serves only the macro-list VJP (macro_bwd_kernel, blend_macros.cu); the
+// list kernels that pull cotangents back (fused first-order and mapping
+// steps, blend VJP) run the tensor-core reverse below. A forward pass that
 // stores the transmittance at each KC-row chunk entry, then a back-to-front
 // pass per chunk that recomputes the chunk's per-row T_excl from its
 // checkpoint, carries the suffix sum(wbar * w) and reduces each row's six
@@ -452,15 +498,15 @@ __device__ __forceinline__ void reverse_blend(const Tile<Rows>& c, float* rows,
 }
 
 // ---------------------------------------------- tensor-core reverse (TC) --
-// Used by the fused first-order and mapping steps, one CTA per tile. The
-// forward stores the transmittance at each chunk's entry and finds the
-// chunks that some pixel walks into (forward_live); the chunks after them
-// get zero rows. The live chunks are reversed back to front: a pass over
-// the chunk's rows from its checkpoint keeps each row's alpha (0 where the
-// row does not contribute) and entry transmittance in shared memory, so
-// the back-to-front pass evaluates no row; it overwrites them with sbar
-// and w, and the row sums are two products on the tensor cores (mma.sync
-// m16n8k8, TF32, float32 accumulation):
+// Used by the fused first-order and mapping steps and the blend VJP, one
+// CTA per tile. The forward stores the transmittance at each chunk's entry
+// and finds the chunks that some pixel walks into (forward_live); the
+// chunks after them get zero rows. The live chunks are reversed back to
+// front: a pass over the chunk's rows from its checkpoint keeps each row's
+// alpha (0 where the row does not contribute) and entry transmittance in
+// shared memory, so the back-to-front pass evaluates no row; it overwrites
+// them with sbar and w, and the row sums are two products on the tensor
+// cores (mma.sync m16n8k8, TF32, float32 accumulation):
 //   moments  [KC x P] sbar . [P x 8] pixel basis (px^2, px py, py^2, px,
 //            py, 1, 0, 0),
 //   features [KC x P] w    . [P x 8] per-pixel output cotangents,
@@ -471,14 +517,30 @@ __device__ __forceinline__ void reverse_blend(const Tile<Rows>& c, float* rows,
 // multiplies pixels [32w, 32w + 32); the warps' partial sums are added in
 // a fixed order (no atomics, so two launches give the same bits).
 //
-// Shared memory (floats): rows [KC][F] | ck [nch][P] checkpoints | A
-// [NA][KC][P + 4] operands (the row stride P + 4 makes the fragment loads
-// conflict-free) | gsh [P][GCOL] feature cotangents | bsum [nw][8] tile
-// sums. The warps' partial products [nw][KC][NC] reuse the operands' space
-// after the products, their totals [KC][NC] too.
+// Pixel slices: a CTA has nt = min(P, SLICE) threads. A tile of more
+// pixels (P 1024 for a 32 px tile) is walked in NSL slices of nt, slice s
+// being pixels [s nt, s nt + nt): thread i holds pixel s nt + i of each
+// slice and its state (transmittance, outputs, terminating row,
+// cotangents, suffix sums) in registers, and pixels beyond P are outside
+// the image. The slices share the staged rows; in the row sums the pixels
+// are the products' K dimension, so each slice's products add into the
+// same accumulators, slice after slice in a fixed order (split K). With
+// NSL = 1 a thread holds one pixel, as in a tile of up to 16 px.
+//
+// Shared memory (floats): rows [KC][F] | ck [nch][NSL][nt] checkpoints |
+// A [NA][KC][nt + 4] operands of one slice (the row stride nt + 4 makes
+// the fragment loads conflict-free) | gsh [nt][GCOL] feature cotangents |
+// bsum [nw][8] tile sums. The warps' partial products [nw][KC][NC] reuse
+// the operands' space after the products, their totals [KC][NC] too.
 
-constexpr int NCOL = 8;  // columns of one product (n of m16n8k8)
-constexpr int GCOL = 4;  // feature columns with a cotangent (r, g, b, z)
+constexpr int NCOL = 8;    // columns of one product (n of m16n8k8)
+constexpr int GCOL = 4;    // feature columns with a cotangent (r, g, b, z)
+constexpr int SLICE = 256; // pixels of a slice: the most threads of a CTA
+constexpr int MAX_SLICES = 4;
+
+__host__ __device__ constexpr int slice_threads(int np) {
+  return np > SLICE ? SLICE : np;
+}
 
 __device__ __forceinline__ unsigned tf32_rna(float x) {
   unsigned r;
@@ -517,226 +579,282 @@ struct TcSpec {
   static constexpr int NC = NA * NCOL;         // summed columns per row
 };
 
-// Forward blend of the tile's rows into o[5] (r, g, b, depth, acc),
-// storing the transmittance at each chunk entry in ck, as
-// forward_checkpointed does; the barrier before each chunk's staging also
-// reduces the exit test, so the walk stops once every pixel has
-// terminated. Returns the pixel's terminating row (kf if it never
-// terminates, 0 beyond the image edge); n_live receives the number of
-// chunks that some pixel walked into, beyond which every row's cotangent
-// is 0. Every thread of the CTA must call it.
-template <class Rows>
-__device__ __forceinline__ int forward_live(const Tile<Rows>& c, float* rows,
-                                            float* ck, int kf, float o[5],
-                                            int& n_live) {
-  float T = 1.0f;
+// The pixels a thread holds beyond the Tile's first: slice s's pixel
+// s nt + p (slice 0's is the Tile's own).
+template <int NSL>
+struct Slices {
+  float pxl[NSL], pyl[NSL];
+  bool ok[NSL];  // inside the tile's P pixels and the image
+};
+
+template <int NSL, class Rows>
+__device__ __forceinline__ Slices<NSL> make_slices(const Tile<Rows>& c,
+                                                   const float* pmat, int np,
+                                                   int width, int height) {
+  Slices<NSL> q;
+  q.pxl[0] = c.pxl;
+  q.pyl[0] = c.pyl;
+  q.ok[0] = c.pix_ok;
 #pragma unroll
-  for (int j = 0; j < 5; ++j) o[j] = 0.f;
-  int kend = c.pix_ok ? kf : 0;
+  for (int s = 1; s < NSL; ++s) {
+    const int i = s * c.P + c.p;
+    const int j = min(i, np - 1);
+    q.pxl[s] = pmat[3 * np + j];
+    q.pyl[s] = pmat[4 * np + j];
+    q.ok[s] = (i < np) && (c.x0 + q.pxl[s] <= (float)(width - 1)) &&
+              (c.y0 + q.pyl[s] <= (float)(height - 1));
+  }
+  return q;
+}
+
+// Whether slice s's pixel of this thread lies within the tile's np pixels
+// (the index of its per-pixel inputs is then c.t np + s nt + c.p).
+template <int NSL, class Rows>
+__device__ __forceinline__ bool in_tile(const Tile<Rows>& c, int s, int np) {
+  return NSL == 1 || s * c.P + c.p < np;
+}
+
+// Forward blend of the tile's rows into o[s][5] (r, g, b, depth, acc) per
+// slice, storing the transmittance at each chunk entry in ck; the barrier
+// before each chunk's staging also reduces the exit test, so the walk
+// stops once every pixel has terminated. kend[s]: the pixel's terminating
+// row (kf if it never terminates, 0 beyond the image edge); n_live
+// receives the number of chunks that some pixel walked into, beyond which
+// every row's cotangent is 0. Every thread of the CTA must call it.
+template <int NSL, class Rows>
+__device__ __forceinline__ void forward_live(const Tile<Rows>& c,
+                                             const Slices<NSL>& q,
+                                             float* rows, float* ck, int kf,
+                                             float o[NSL][5], int kend[NSL],
+                                             int& n_live) {
+  float T[NSL];
+#pragma unroll
+  for (int s = 0; s < NSL; ++s) {
+    T[s] = 1.0f;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) o[s][j] = 0.f;
+    kend[s] = q.ok[s] ? kf : 0;
+  }
   n_live = 0;
   for (int ch = 0; ch < n_chunks(kf); ++ch) {
-    if (!__syncthreads_or(kend == kf)) break;
+    bool walking = false;
+#pragma unroll
+    for (int s = 0; s < NSL; ++s) walking = walking || kend[s] == kf;
+    if (!__syncthreads_or(walking)) break;
     n_live = ch + 1;
     const int k0 = ch * KC;
     const int n = min(KC, kf - k0);
-    ck[ch * c.P + c.p] = T;
+#pragma unroll
+    for (int s = 0; s < NSL; ++s) ck[(ch * NSL + s) * c.P + c.p] = T[s];
     stage_rows(rows, c, k0, n);
     __syncthreads();
-    if (kend == kf) {
+#pragma unroll
+    for (int s = 0; s < NSL; ++s) {
+      if (kend[s] != kf) continue;
       for (int i = 0; i < n; ++i) {
         const float* r = rows + i * F;
-        const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
+        const RowEval e =
+            eval_row(r, c.x0, c.y0, q.pxl[s], q.pyl[s], q.ok[s]);
         if (!e.ok) continue;
-        const float test = T * (1.0f - e.alpha);
+        const float test = T[s] * (1.0f - e.alpha);
         if (test < T_EPS) {
-          kend = k0 + i;
+          kend[s] = k0 + i;
           break;
         }
-        const float w = e.alpha * T;
-        o[0] += w * r[R0];
-        o[1] += w * r[G0];
-        o[2] += w * r[B0];
-        o[3] += w * r[CZ];
-        o[4] += w;
-        T = test;
+        const float w = e.alpha * T[s];
+        o[s][0] += w * r[R0];
+        o[s][1] += w * r[G0];
+        o[s][2] += w * r[B0];
+        o[s][3] += w * r[CZ];
+        o[s][4] += w;
+        T[s] = test;
       }
     }
   }
-  return kend;
 }
 
-// Chunk ch's rows staged into `rows`, and each row's alpha (0 where the
-// row does not contribute) into A0 and entry transmittance into A1
-// ([KC][lda], zero beyond the list), walked again from the chunk's
-// checkpoint. Every thread of the CTA must call it.
-template <class Rows>
-__device__ __forceinline__ void record_chunk(const Tile<Rows>& c,
-                                             float* rows, const float* ck,
-                                             float* A0, float* A1, int lda,
-                                             int kf, int kend, int ch) {
-  const int k0 = ch * KC;
-  const int n = min(KC, kf - k0);
-  __syncthreads();
-  stage_rows(rows, c, k0, n);
-  __syncthreads();
-  float T = ck[ch * c.P + c.p];
-  for (int i = 0; i < KC; ++i) {
-    float al = 0.f, tx = 0.f;
-    if (i < n && k0 + i < kend) {
-      const RowEval e =
-          eval_row(rows + i * F, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
-      if (e.ok) {
-        al = e.alpha;
-        tx = T;
-        T *= (1.0f - al);
-      }
-    }
-    A0[i * lda + c.p] = al;
-    A1[i * lda + c.p] = tx;
-  }
-}
-
-// Reverse of a chunk (rows k0 .. k0 + n - 1, in `mine`) from the records
-// of record_chunk, and the row cotangents written to dd_t
-// (and ddd_t). g[5]: this pixel's output cotangent (r, g, b, depth, acc),
-// the depth entry read only when DEP; gd: the depth-only chain's cotangent
-// when DEPCHAIN. S, Sd: the suffix sums(wbar * w) of the rows after the
-// chunk, carried on to the chunk's first row.
-// Every thread of the CTA must call it.
-template <bool DEP, bool DEPCHAIN, class Rows>
+// Reverse of live chunk ch of every slice, and the row cotangents written
+// to dd_t (and ddd_t). Per slice: the chunk's rows walked again from the
+// slice's checkpoint, keeping each row's alpha (0 where the row does not
+// contribute) in A0 and entry transmittance in A1; back to front from the
+// suffix behind the chunk, overwriting them with sbar and w (and the depth
+// chain's sbar in A2); the products added into the accumulators. g[s]:
+// slice s's output cotangent (r, g, b, depth, acc), the depth entry read
+// only when DEP; gd[s]: the depth-only chain's cotangent when DEPCHAIN.
+// S, Sd: per slice, the suffix sums(wbar * w) of the rows after the chunk,
+// carried on to the chunk's first row. Every thread of the CTA must call
+// it.
+template <bool DEP, bool DEPCHAIN, int NSL, class Rows>
 __device__ __forceinline__ void reverse_chunk_tc(
-    const Tile<Rows>& c, const float* mine, float* A, float* gsh, int lda,
-    int k0, int n, const float* pmat, const float g[5], float gd, float& S,
-    float& Sd, float* dd_t, float* ddd_t) {
+    const Tile<Rows>& c, const Slices<NSL>& q, float* rows, const float* ck,
+    float* A, float* gsh, int lda, int kf, int ch, const int kend[NSL],
+    const float* pmat, int np, const float g[NSL][5], const float gd[NSL],
+    float S[NSL], float Sd[NSL], float* dd_t, float* ddd_t) {
   static_assert(!(DEP && DEPCHAIN), "one depth form per kernel");
   using Spec = TcSpec<DEPCHAIN>;
   constexpr int NC = Spec::NC;
   float* A0 = A;             // alpha -> sbar
   float* A1 = A + KC * lda;  // entry transmittance -> w
   float* A2 = A1 + KC * lda; // depth chain's sbar (DEPCHAIN)
-
-  // the feature product's B: this pixel's cotangent of r, g, b and of the
-  // depth column (the output's when DEP, the depth chain's when DEPCHAIN)
-  {
-    float* gp = gsh + c.p * GCOL;
-    gp[0] = g[0];
-    gp[1] = g[1];
-    gp[2] = g[2];
-    gp[3] = DEP ? g[3] : (DEPCHAIN ? gd : 0.f);
-  }
-
-  // back to front over the chunk's rows, from the suffix behind the chunk
-  for (int i = KC - 1; i >= 0; --i) {
-    const float al = A0[i * lda + c.p];
-    const float tx = A1[i * lda + c.p];
-    float sb = 0.f, w = 0.f, sbd = 0.f;
-    if (al > 0.f) {  // contributing
-      const float* r = mine + i * F;
-      float wbar = r[R0] * g[0] + r[G0] * g[1] + r[B0] * g[2];
-      if constexpr (DEP) wbar += r[CZ] * g[3];
-      wbar += g[4];
-      const float om = 1.0f - al;
-      w = al * tx;
-      const float obar = S / om;
-      const float abar = tx * wbar - obar;
-      S += wbar * w;
-      if (al < 0.99f) sb = al * abar;
-      if constexpr (DEPCHAIN) {
-        const float wbd = r[CZ] * gd;
-        const float obd = Sd / om;
-        const float abd = tx * wbd - obd;
-        Sd += wbd * w;
-        if (al < 0.99f) sbd = al * abd;
-      }
-    }
-    A0[i * lda + c.p] = sb;
-    A1[i * lda + c.p] = w;
-    if constexpr (DEPCHAIN) A2[i * lda + c.p] = sbd;
-  }
+  const int k0 = ch * KC;
+  const int n = min(KC, kf - k0);
+  __syncthreads();
+  stage_rows(rows, c, k0, n);
   __syncthreads();
 
-  // the chunk's row sums on the tensor cores: warp w takes pixels
-  // [32 w, 32 w + 32) in four k-steps of 8, both 16-row halves. mma.sync
-  // needs the whole warp converged, so no operand fetch depends on the
-  // lane by a branch: every lane loads (the basis row min(gid, 5), the
-  // cotangent column gid & 3) and rows 6-7 of the basis and columns 4-7 of
-  // the cotangents are masked to 0 after the load
-  __syncwarp();
+  // mma.sync needs the whole warp converged, so no operand fetch depends
+  // on the lane by a branch: every lane loads (the basis row min(gid, 5),
+  // the cotangent column gid & 3) and rows 6-7 of the basis and columns
+  // 4-7 of the cotangents are masked to 0 after the load
   const int gid = c.lane >> 2, tig = c.lane & 3;
   const unsigned bmask = 0u - (unsigned)(gid < 6);
   const unsigned gmask = 0u - (unsigned)(gid < GCOL);
-  const float* prow = pmat + min(gid, 5) * c.P;
+  const float* prow = pmat + min(gid, 5) * np;
   const float* gcol = gsh + (gid & (GCOL - 1));
   float acc[Spec::NA][2][4];
 #pragma unroll
-  for (int q = 0; q < Spec::NA; ++q)
+  for (int qa = 0; qa < Spec::NA; ++qa)
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[q][mt][j] = 0.f;
+      for (int j = 0; j < 4; ++j) acc[qa][mt][j] = 0.f;
+
 #pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int kk = c.warp * 32 + s * 8 + tig;
-    unsigned bp[2], gb[2], gs[2];
-    bp[0] = __float_as_uint(prow[kk]) & bmask;
-    bp[1] = __float_as_uint(prow[kk + 4]) & bmask;
-    tf32_split(__uint_as_float(__float_as_uint(gcol[kk * GCOL]) & gmask),
-               gb[0], gs[0]);
-    tf32_split(
-        __uint_as_float(__float_as_uint(gcol[(kk + 4) * GCOL]) & gmask),
-        gb[1], gs[1]);
+  for (int s = 0; s < NSL; ++s) {
+    // the slice's records, walked again from its checkpoint
+    {
+      float T = ck[(ch * NSL + s) * c.P + c.p];
+      for (int i = 0; i < KC; ++i) {
+        float al = 0.f, tx = 0.f;
+        if (i < n && k0 + i < kend[s]) {
+          const RowEval e = eval_row(rows + i * F, c.x0, c.y0, q.pxl[s],
+                                     q.pyl[s], q.ok[s]);
+          if (e.ok) {
+            al = e.alpha;
+            tx = T;
+            T *= (1.0f - al);
+          }
+        }
+        A0[i * lda + c.p] = al;
+        A1[i * lda + c.p] = tx;
+      }
+    }
+
+    // the feature product's B: this pixel's cotangent of r, g, b and of
+    // the depth column (the output's when DEP, the depth chain's when
+    // DEPCHAIN)
+    {
+      float* gp = gsh + c.p * GCOL;
+      gp[0] = g[s][0];
+      gp[1] = g[s][1];
+      gp[2] = g[s][2];
+      gp[3] = DEP ? g[s][3] : (DEPCHAIN ? gd[s] : 0.f);
+    }
+
+    // back to front over the chunk's rows, from the suffix behind the chunk
+    for (int i = KC - 1; i >= 0; --i) {
+      const float al = A0[i * lda + c.p];
+      const float tx = A1[i * lda + c.p];
+      float sb = 0.f, w = 0.f, sbd = 0.f;
+      if (al > 0.f) {  // contributing
+        const float* r = rows + i * F;
+        float wbar = r[R0] * g[s][0] + r[G0] * g[s][1] + r[B0] * g[s][2];
+        if constexpr (DEP) wbar += r[CZ] * g[s][3];
+        wbar += g[s][4];
+        const float om = 1.0f - al;
+        w = al * tx;
+        const float obar = S[s] / om;
+        const float abar = tx * wbar - obar;
+        S[s] += wbar * w;
+        if (al < 0.99f) sb = al * abar;
+        if constexpr (DEPCHAIN) {
+          const float wbd = r[CZ] * gd[s];
+          const float obd = Sd[s] / om;
+          const float abd = tx * wbd - obd;
+          Sd[s] += wbd * w;
+          if (al < 0.99f) sbd = al * abd;
+        }
+      }
+      A0[i * lda + c.p] = sb;
+      A1[i * lda + c.p] = w;
+      if constexpr (DEPCHAIN) A2[i * lda + c.p] = sbd;
+    }
+    __syncthreads();
+
+    // the slice's row sums on the tensor cores: warp w takes pixels
+    // [32 w, 32 w + 32) of the slice in four k-steps of 8, both 16-row
+    // halves; a pixel beyond P has zero operands, and its basis is read
+    // at P - 1
+    __syncwarp();
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const int r0 = (mt * 16 + gid) * lda + kk;
-      const int r1 = r0 + 8 * lda;
+    for (int s4 = 0; s4 < 4; ++s4) {
+      const int kk = c.warp * 32 + s4 * 8 + tig;
+      int b0 = kk, b1 = kk + 4;
+      if constexpr (NSL > 1) {
+        b0 = min(s * c.P + b0, np - 1);
+        b1 = min(s * c.P + b1, np - 1);
+      }
+      unsigned bp[2], gb[2], gs[2];
+      bp[0] = __float_as_uint(prow[b0]) & bmask;
+      bp[1] = __float_as_uint(prow[b1]) & bmask;
+      tf32_split(__uint_as_float(__float_as_uint(gcol[kk * GCOL]) & gmask),
+                 gb[0], gs[0]);
+      tf32_split(
+          __uint_as_float(__float_as_uint(gcol[(kk + 4) * GCOL]) & gmask),
+          gb[1], gs[1]);
 #pragma unroll
-      for (int q = 0; q < Spec::NA; ++q) {
-        const float* Aq = A + q * KC * lda;
-        unsigned ab[4], as[4];
-        tf32_split(Aq[r0], ab[0], as[0]);
-        tf32_split(Aq[r1], ab[1], as[1]);
-        tf32_split(Aq[r0 + 4], ab[2], as[2]);
-        tf32_split(Aq[r1 + 4], ab[3], as[3]);
-        if (q == 1) {  // features: remainders first, then the big parts
-          mma_tf32(acc[q][mt], as, gb);
-          mma_tf32(acc[q][mt], ab, gs);
-          mma_tf32(acc[q][mt], ab, gb);
-        } else {       // moments: the pixel basis is exact in TF32
-          mma_tf32(acc[q][mt], as, bp);
-          mma_tf32(acc[q][mt], ab, bp);
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r0 = (mt * 16 + gid) * lda + kk;
+        const int r1 = r0 + 8 * lda;
+#pragma unroll
+        for (int qa = 0; qa < Spec::NA; ++qa) {
+          const float* Aq = A + qa * KC * lda;
+          unsigned ab[4], as[4];
+          tf32_split(Aq[r0], ab[0], as[0]);
+          tf32_split(Aq[r1], ab[1], as[1]);
+          tf32_split(Aq[r0 + 4], ab[2], as[2]);
+          tf32_split(Aq[r1 + 4], ab[3], as[3]);
+          if (qa == 1) {  // features: remainders first, then the big parts
+            mma_tf32(acc[qa][mt], as, gb);
+            mma_tf32(acc[qa][mt], ab, gs);
+            mma_tf32(acc[qa][mt], ab, gb);
+          } else {        // moments: the pixel basis is exact in TF32
+            mma_tf32(acc[qa][mt], as, bp);
+            mma_tf32(acc[qa][mt], ab, bp);
+          }
         }
       }
     }
+    __syncthreads();  // every warp has read the operands
   }
-  __syncthreads();  // every warp has read the operands
 
   // partial sums [nw][KC][NC] over the operands, then their totals
   // [KC][NC] in a fixed order over the warps
   float* part = A;
   float* tot = A + c.nw * KC * NC;
 #pragma unroll
-  for (int q = 0; q < Spec::NA; ++q)
+  for (int qa = 0; qa < Spec::NA; ++qa)
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      float* pr = part + (c.warp * KC + mt * 16 + gid) * NC + q * NCOL +
+      float* pr = part + (c.warp * KC + mt * 16 + gid) * NC + qa * NCOL +
                   2 * tig;
       *reinterpret_cast<float2*>(pr) =
-          make_float2(acc[q][mt][0], acc[q][mt][1]);
+          make_float2(acc[qa][mt][0], acc[qa][mt][1]);
       *reinterpret_cast<float2*>(pr + 8 * NC) =
-          make_float2(acc[q][mt][2], acc[q][mt][3]);
+          make_float2(acc[qa][mt][2], acc[qa][mt][3]);
     }
   __syncthreads();
   for (int idx = c.p; idx < KC * NC; idx += c.P) {
-    float s = 0.f;
-    for (int w = 0; w < c.nw; ++w) s += part[w * KC * NC + idx];
-    tot[idx] = s;
+    float sum = 0.f;
+    for (int w = 0; w < c.nw; ++w) sum += part[w * KC * NC + idx];
+    tot[idx] = sum;
   }
   __syncthreads();
   // columns of tot per row: moments 0-5 | w g: r, g, b, depth 8-11 |
   // depth chain's moments 16-21
   if (c.p < n) {
     const float* tr = tot + c.p * NC;
-    const float* r = mine + c.p * F;
+    const float* r = rows + c.p * F;
     const size_t row = (size_t)c.src(k0 + c.p) * F;
     write_row(dd_t + row, r, c.x0, c.y0, tr, tr[8], tr[9], tr[10],
               DEP ? tr[11] : 0.0f);
@@ -750,31 +868,33 @@ __device__ __forceinline__ void reverse_chunk_tc(
 // the checkpoints ck): zero rows beyond the live chunks, then each live
 // chunk back to front, recorded and reversed on the tensor cores. Every
 // thread of the CTA must call it.
-template <bool DEP, bool DEPCHAIN, class Rows>
+template <bool DEP, bool DEPCHAIN, int NSL, class Rows>
 __device__ __forceinline__ void reverse_tile_tc(
-    const Tile<Rows>& c, float* rows, const float* ck, float* A, float* gsh,
-    int lda, int kf, int kend, int n_live, const float* pmat,
-    const float g[5], float gd, float* dd_t, float* ddd_t) {
+    const Tile<Rows>& c, const Slices<NSL>& q, float* rows, const float* ck,
+    float* A, float* gsh, int lda, int kf, const int kend[NSL], int n_live,
+    const float* pmat, int np, const float g[NSL][5], const float gd[NSL],
+    float* dd_t, float* ddd_t) {
   for (int k = n_live * KC + c.p; k < kf; k += c.P) {
     const size_t row = (size_t)c.src(k) * F;
     zero_row(dd_t + row);
     if constexpr (DEPCHAIN) zero_row(ddd_t + row);
   }
-  float S = 0.f, Sd = 0.f;  // suffix sums of wbar * w (each chain)
-  for (int ch = n_live - 1; ch >= 0; --ch) {
-    record_chunk(c, rows, ck, A, A + KC * lda, lda, kf, kend, ch);
-    reverse_chunk_tc<DEP, DEPCHAIN>(c, rows, A, gsh, lda, ch * KC,
-                                    min(KC, kf - ch * KC), pmat, g, gd, S,
-                                    Sd, dd_t, ddd_t);
-  }
+  float S[NSL], Sd[NSL];  // suffix sums of wbar * w (each chain)
+#pragma unroll
+  for (int s = 0; s < NSL; ++s) S[s] = Sd[s] = 0.f;
+  for (int ch = n_live - 1; ch >= 0; --ch)
+    reverse_chunk_tc<DEP, DEPCHAIN>(c, q, rows, ck, A, gsh, lda, kf, ch,
+                                    kend, pmat, np, g, gd, S, Sd, dd_t,
+                                    ddd_t);
 }
 
-// Shared memory of a fused step's CTA, in bytes: rows [KC][F] | ck
-// [nch][P] | operands [NA][KC][P + 4] | gsh [P][GCOL] | bsum [nw][8].
-size_t reverse_tc_smem(int kf, int p, bool depchain) {
+// Shared memory of a tensor-core reverse CTA of nt threads and nsl pixel
+// slices, in bytes: rows [KC][F] | ck [nch][nsl][nt] | operands
+// [NA][KC][nt + 4] | gsh [nt][GCOL] | bsum [nw][8].
+size_t reverse_tc_smem(int kf, int nt, int nsl, bool depchain) {
   const int na = depchain ? 3 : 2;
-  return (size_t)(KC * F + n_chunks(kf) * p + na * KC * (p + 4) + p * GCOL +
-                  (p / 32) * 8) *
+  return (size_t)(KC * F + n_chunks(kf) * nsl * nt + na * KC * (nt + 4) +
+                  nt * GCOL + (nt / 32) * 8) *
          sizeof(float);
 }
 

@@ -17,17 +17,20 @@
 // (r, g, b, depth, acc, 0, 0, 0) per pixel.
 //
 // Design: one CTA per tile, one thread per pixel (P = tile*tile = 256 at the
-// shipped config), the shape of the CUDA 3DGS rasterizer; the fused
-// first-order and mapping steps reverse only the chunks that some pixel
-// walks into and sum each row's moments and features on the tensor cores
-// (blend_common.cuh, "tensor-core reverse"). Rows are staged in
-// shared memory KC at a time; each thread walks them front to back with its
-// own transmittance in a register. What the TPU kernel needed for Mosaic
-// (tile batching, bf16x3 matmuls, block-diagonal feature matrices, K-chunk
-// VMEM budgets) is gone: the feature reduction is an f32 multiply-add per
-// thread. The device machinery (row evaluation and staging, the forward
-// walk, the checkpointed forward and the reverse blend) lives in
-// blend_common.cuh, shared with the macro-list kernels of blend_macros.cu.
+// shipped config), the shape of the CUDA 3DGS rasterizer. The fused
+// first-order and mapping steps and the blend VJP reverse only the chunks
+// that some pixel walks into and sum each row's moments and features on
+// the tensor cores (blend_common.cuh, "tensor-core reverse"); a tile of
+// more than 256 pixels is walked by 256 threads in pixel slices. The
+// six-tangent pass runs one CTA per (half tile, three tangents), so that
+// every SM holds enough warps. Rows are staged in shared memory KC at a
+// time; each thread walks them front to back with its own transmittance
+// in a register. What the TPU kernel needed for Mosaic (tile batching,
+// bf16x3 matmuls, block-diagonal feature matrices, K-chunk VMEM budgets)
+// is gone. The device machinery (row evaluation and staging, the forward
+// walk, the tensor-core reverse, and the checkpointed forward and reverse
+// blend of the macro-list VJP) lives in blend_common.cuh, shared with the
+// macro-list kernels of blend_macros.cu.
 //
 // Bound on the H100: every (row, pixel) pair a pixel walks costs 26 f32
 // operations to evaluate alpha (expf is 10 of them); a contributing pair
@@ -38,8 +41,8 @@
 // FP32-to-HBM ratio of 20, so the FP32 pipes, not HBM, bound every kernel
 // (chip_smoke.py counts the pairs). The per-pixel early exit
 // (T * (1 - alpha) < 1e-4) skips the rows behind opaque surfaces, and a CTA
-// stops staging rows once every pixel has exited. In the fused steps row
-// sums by warp shuffles would serialise each CTA on its reverse.
+// stops staging rows once every pixel has exited. In the reverse kernels
+// row sums by warp shuffles would serialise each CTA on its reverse.
 //
 // Numerics: the per-pixel early exit is exact, because T is non-increasing:
 // once T * (1 - a) < 1e-4 no later row can contribute (renderer.py:151-155).
@@ -47,10 +50,13 @@
 // as in the TPU kernel. The library is built with -fmad=false and without
 // fast math, so that s, alpha and T round exactly as the plain PyTorch
 // version's elementwise ops do and the 1/255 and 1e-4 threshold decisions
-// agree with it.
+// agree with it; the six-tangent pass's tangent sums, which decide no
+// threshold, are explicit fused multiply-adds.
 //
 // Each C entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() (0 on success).
+
+#include <type_traits>
 
 #include "blend_common.cuh"
 
@@ -78,71 +84,85 @@ __global__ void fwd_kernel(const float* __restrict__ d,
 // ------------------------------------------------- fused first-order step --
 // Forward blend, exposure + masked signed-sqrt Huber residual, analytic
 // output cotangents, reverse blend. RGBD adds the second reverse chain of
-// the (globally normalized) depth term.
-template <bool RGBD>
+// the (globally normalized) depth term. np: the tile's pixels, walked in
+// NSL slices (blend_common.cuh, "tensor-core reverse").
+template <bool RGBD, int NSL>
 __global__ void fo_grad_kernel(
     const float* __restrict__ d, const float* __restrict__ tx0,
     const float* __restrict__ ty0, const float* __restrict__ pmat,
     const float* __restrict__ gt, const float* __restrict__ mask,
     const float* __restrict__ gtd, const float* __restrict__ sc,
     float* __restrict__ dd, float* __restrict__ dd_dep,
-    float* __restrict__ sums, int kf, int width, int height, int use_huber,
-    float delta, float two_delta, float delta_sq, float eps) {
+    float* __restrict__ sums, int kf, int np, int width, int height,
+    int use_huber, float delta, float two_delta, float delta_sq,
+    float eps) {
   extern __shared__ float smem[];
-  const auto c = load_tile(d, tx0, ty0, pmat, kf, width, height);
+  if constexpr (NSL == 1) np = blockDim.x;
+  const auto c = load_tile(d, tx0, ty0, pmat, kf, width, height, np);
+  const auto q = make_slices<NSL>(c, pmat, np, width, height);
   const int lda = c.P + 4;
   float* rows = smem;
   float* ck = rows + KC * F;
-  float* A = ck + n_chunks(kf) * c.P;
+  float* A = ck + n_chunks(kf) * NSL * c.P;
   float* gsh = A + TcSpec<RGBD>::NA * KC * lda;
   float* bsum = gsh + c.P * GCOL;
 
-  float o[5];
-  int n_live;
-  const int kend = forward_live(c, rows, ck, kf, o, n_live);
+  float o[NSL][5];
+  int kend[NSL], n_live;
+  forward_live(c, q, rows, ck, kf, o, kend, n_live);
 
   // ---- residual chain and output cotangents (ops/losses semantics)
-  const size_t px = (size_t)c.t * c.P + c.p;
   const float e_a = fabsf(sc[0]) + eps;
   const float e_b = sc[1];
-  const float acc = o[4];
-  const float mk = mask[px];
-  const float am = acc * mk;
-  float g[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // d(sum hub^2)/d(r, g, b, -, acc)
+  float g[NSL][5];  // d(sum hub^2)/d(r, g, b, -, acc)
+  float gd3[NSL];
   float part[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // sumsq, l1, gea, geb, sd
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const float col = o[ch];
-    const float diff = (e_a * col + e_b) - gt[px * 3 + ch];
-    const float r = am * diff;
-    const float ax = fabsf(r);
-    float hub = r, slope = 1.0f;
-    if (use_huber && !(ax < delta)) {
-      const float safe = sqrtf(fmaxf(two_delta * ax - delta_sq, 1e-20f));
-      const float sgn = r > 0.f ? 1.f : (r < 0.f ? -1.f : 0.f);
-      hub = sgn * safe;
-      slope = delta / safe;
+  for (int s = 0; s < NSL; ++s) {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) g[s][j] = 0.f;
+    gd3[s] = 0.f;
+    if (!in_tile<NSL>(c, s, np)) continue;
+    const size_t px = (size_t)c.t * np + s * c.P + c.p;
+    const float acc = o[s][4];
+    const float mk = mask[px];
+    const float am = acc * mk;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float col = o[s][ch];
+      const float diff = (e_a * col + e_b) - gt[px * 3 + ch];
+      const float r = am * diff;
+      const float ax = fabsf(r);
+      float hub = r, slope = 1.0f;
+      if (use_huber && !(ax < delta)) {
+        const float safe = sqrtf(fmaxf(two_delta * ax - delta_sq, 1e-20f));
+        const float sgn = r > 0.f ? 1.f : (r < 0.f ? -1.f : 0.f);
+        hub = sgn * safe;
+        slope = delta / safe;
+      }
+      const float rbar = 2.0f * hub * slope;
+      g[s][ch] = rbar * am * e_a;
+      g[s][4] += rbar * mk * diff;
+      part[0] += hub * hub;
+      part[1] += ax;
+      part[2] += rbar * am * col;
+      part[3] += rbar * am;
     }
-    const float rbar = 2.0f * hub * slope;
-    g[ch] = rbar * am * e_a;
-    g[4] += rbar * mk * diff;
-    part[0] += hub * hub;
-    part[1] += ax;
-    part[2] += rbar * am * col;
-    part[3] += rbar * am;
-  }
-  float gd3 = 0.f;
-  if constexpr (RGBD) {
-    const float gz = gtd[px];
-    const bool dm = (gz > 0.01f) && (acc > 0.95f);
-    const float r_d = dm ? o[3] - gz : 0.0f;
-    gd3 = 2.0f * r_d;
-    part[4] = r_d * r_d;
+    if constexpr (RGBD) {
+      const float gz = gtd[px];
+      const bool dm = (gz > 0.01f) && (acc > 0.95f);
+      const float r_d = dm ? o[s][3] - gz : 0.0f;
+      gd3[s] = 2.0f * r_d;
+      if constexpr (NSL == 1)
+        part[4] = r_d * r_d;
+      else
+        part[4] += r_d * r_d;
+    }
   }
   tile_sums<5>(c, part, bsum, sums);
   const size_t base = (size_t)c.t * kf * F;
-  reverse_tile_tc<false, RGBD>(c, rows, ck, A, gsh, lda, kf, kend, n_live,
-                               pmat, g, gd3, dd + base,
+  reverse_tile_tc<false, RGBD>(c, q, rows, ck, A, gsh, lda, kf, kend, n_live,
+                               pmat, np, g, gd3, dd + base,
                                RGBD ? dd_dep + base : nullptr);
 }
 
@@ -156,119 +176,160 @@ __global__ void fo_grad_kernel(
 // the exposure sums. One body for both row sources: the tile's own rows
 // (map_grad_kernel) and raw rows with an additive log-opacity column
 // (map_grad_madd_kernel, the TPU kernel's with_madd variant).
-template <bool RGBD, class Rows>
+template <bool RGBD, int NSL, class Rows>
 __device__ __forceinline__ void map_grad_tile(
     const Tile<Rows>& c, float* smem, const float* __restrict__ pmat,
     const float* __restrict__ gt, const float* __restrict__ mask,
     const float* __restrict__ gtd, const float* __restrict__ sc,
-    float* __restrict__ dd, float* __restrict__ sums, int kf,
-    int use_exposure, float w_rgb, float w_dep, float eps) {
+    float* __restrict__ dd, float* __restrict__ sums, int kf, int np,
+    int width, int height, int use_exposure, float w_rgb, float w_dep,
+    float eps) {
+  const auto q = make_slices<NSL>(c, pmat, np, width, height);
   const int lda = c.P + 4;
   float* rows = smem;
   float* ck = rows + KC * F;
-  float* A = ck + n_chunks(kf) * c.P;
+  float* A = ck + n_chunks(kf) * NSL * c.P;
   float* gsh = A + TcSpec<false>::NA * KC * lda;
   float* bsum = gsh + c.P * GCOL;
 
-  float o[5];
-  int n_live;
-  const int kend = forward_live(c, rows, ck, kf, o, n_live);
+  float o[NSL][5];
+  int kend[NSL], n_live;
+  forward_live(c, q, rows, ck, kf, o, kend, n_live);
 
-  const size_t px = (size_t)c.t * c.P + c.p;
   const float e = use_exposure ? fabsf(sc[0]) + eps : 1.0f;
-  const float mk = mask[px];
   const float ge = w_rgb * e;
-  float g[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+  float g[NSL][5];
   float part[4] = {0.f, 0.f, 0.f, 0.f};  // l_rgb, l_dep, gea, geb
 #pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    const float col = o[ch];
-    const float img = use_exposure ? e * col + sc[1] : col;
-    const float r = (img - gt[px * 3 + ch]) * mk;
-    const float sgn = r > 0.f ? 1.f : (r < 0.f ? -1.f : 0.f);
-    g[ch] = ge * sgn * mk;
-    part[0] += fabsf(r);
-    part[2] += sgn * mk * col;
-    part[3] += sgn * mk;
-  }
-  if constexpr (RGBD) {
-    const float gz = gtd[px];
-    const float dm = gz > 0.01f ? 1.0f : 0.0f;
-    const float r_d = (o[3] - gz) * dm;
-    const float sgn = r_d > 0.f ? 1.f : (r_d < 0.f ? -1.f : 0.f);
-    g[3] = w_dep * sgn * dm;
-    part[1] = fabsf(r_d);
+  for (int s = 0; s < NSL; ++s) {
+#pragma unroll
+    for (int j = 0; j < 5; ++j) g[s][j] = 0.f;
+    if (!in_tile<NSL>(c, s, np)) continue;
+    const size_t px = (size_t)c.t * np + s * c.P + c.p;
+    const float mk = mask[px];
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const float col = o[s][ch];
+      const float img = use_exposure ? e * col + sc[1] : col;
+      const float r = (img - gt[px * 3 + ch]) * mk;
+      const float sgn = r > 0.f ? 1.f : (r < 0.f ? -1.f : 0.f);
+      g[s][ch] = ge * sgn * mk;
+      part[0] += fabsf(r);
+      part[2] += sgn * mk * col;
+      part[3] += sgn * mk;
+    }
+    if constexpr (RGBD) {
+      const float gz = gtd[px];
+      const float dm = gz > 0.01f ? 1.0f : 0.0f;
+      const float r_d = (o[s][3] - gz) * dm;
+      const float sgn = r_d > 0.f ? 1.f : (r_d < 0.f ? -1.f : 0.f);
+      g[s][3] = w_dep * sgn * dm;
+      if constexpr (NSL == 1)
+        part[1] = fabsf(r_d);
+      else
+        part[1] += fabsf(r_d);
+    }
   }
   tile_sums<4>(c, part, bsum, sums);
-  reverse_tile_tc<RGBD, false>(c, rows, ck, A, gsh, lda, kf, kend, n_live,
-                               pmat, g, 0.f, dd + (size_t)c.t * kf * F,
-                               nullptr);
+  const float gd[NSL] = {};
+  reverse_tile_tc<RGBD, false>(c, q, rows, ck, A, gsh, lda, kf, kend,
+                               n_live, pmat, np, g, gd,
+                               dd + (size_t)c.t * kf * F, nullptr);
 }
 
-template <bool RGBD>
+template <bool RGBD, int NSL>
 __global__ void map_grad_kernel(
     const float* __restrict__ d, const float* __restrict__ tx0,
     const float* __restrict__ ty0, const float* __restrict__ pmat,
     const float* __restrict__ gt, const float* __restrict__ mask,
     const float* __restrict__ gtd, const float* __restrict__ sc,
-    float* __restrict__ dd, float* __restrict__ sums, int kf, int width,
-    int height, int use_exposure, float w_rgb, float w_dep, float eps) {
+    float* __restrict__ dd, float* __restrict__ sums, int kf, int np,
+    int width, int height, int use_exposure, float w_rgb, float w_dep,
+    float eps) {
   extern __shared__ float smem[];
-  map_grad_tile<RGBD>(load_tile(d, tx0, ty0, pmat, kf, width, height), smem,
-                      pmat, gt, mask, gtd, sc, dd, sums, kf, use_exposure,
-                      w_rgb, w_dep, eps);
+  if constexpr (NSL == 1) np = blockDim.x;
+  map_grad_tile<RGBD, NSL>(
+      load_tile(d, tx0, ty0, pmat, kf, width, height, np), smem, pmat, gt,
+      mask, gtd, sc, dd, sums, kf, np, width, height, use_exposure, w_rgb,
+      w_dep, eps);
 }
 
 // madd [T, kf]: 0 for a valid row, -1e30 for an invalid one, added to the
 // raw row's log-opacity as it is staged (forward and reverse alike), so the
 // caller needs no masked copy of the rows. d(LOGO + madd)/d(LOGO) = 1 and an
 // invalid row blends with w = 0, so dd is the masked rows' cotangent.
-template <bool RGBD>
+template <bool RGBD, int NSL>
 __global__ void map_grad_madd_kernel(
     const float* __restrict__ d, const float* __restrict__ madd,
     const float* __restrict__ tx0, const float* __restrict__ ty0,
     const float* __restrict__ pmat, const float* __restrict__ gt,
     const float* __restrict__ mask, const float* __restrict__ gtd,
     const float* __restrict__ sc, float* __restrict__ dd,
-    float* __restrict__ sums, int kf, int width, int height,
+    float* __restrict__ sums, int kf, int np, int width, int height,
     int use_exposure, float w_rgb, float w_dep, float eps) {
   extern __shared__ float smem[];
+  if constexpr (NSL == 1) np = blockDim.x;
   const int t = blockIdx.x;
   const MaddRows src{d + (size_t)t * kf * F, madd + (size_t)t * kf};
-  map_grad_tile<RGBD>(make_tile(t, tx0[t], ty0[t], pmat, src, width, height),
-                      smem, pmat, gt, mask, gtd, sc, dd, sums, kf,
-                      use_exposure, w_rgb, w_dep, eps);
+  map_grad_tile<RGBD, NSL>(
+      make_tile(t, tx0[t], ty0[t], pmat, src, width, height, np), smem,
+      pmat, gt, mask, gtd, sc, dd, sums, kf, np, width, height,
+      use_exposure, w_rgb, w_dep, eps);
 }
 
 // ------------------------------------------------------------- blend VJP --
-// Row cotangents of the list blend from output cotangents g_outs [T, P, 8]:
-// the forward recomputed from chunk checkpoints, then the reverse blend.
-// Columns 5-7 of g_outs pair with constant-zero features and are not read.
+// Row cotangents of the list blend from output cotangents g_outs [T, P, 8],
+// on the tensor-core reverse of the fused steps with the per-pixel
+// cotangent read from g_outs: the forward recomputed with its chunk
+// checkpoints, then the live chunks reversed back to front. Columns 5-7 of
+// g_outs pair with constant-zero features and are not read.
+template <int NSL>
 __global__ void bwd_kernel(const float* __restrict__ d,
                            const float* __restrict__ tx0,
                            const float* __restrict__ ty0,
                            const float* __restrict__ pmat,
                            const float* __restrict__ g_outs,
-                           float* __restrict__ dd, int kf, int width,
+                           float* __restrict__ dd, int kf, int np, int width,
                            int height) {
   extern __shared__ float smem[];
-  const auto c = load_tile(d, tx0, ty0, pmat, kf, width, height);
+  if constexpr (NSL == 1) np = blockDim.x;
+  const auto c = load_tile(d, tx0, ty0, pmat, kf, width, height, np);
+  const auto q = make_slices<NSL>(c, pmat, np, width, height);
+  const int lda = c.P + 4;
   float* rows = smem;
   float* ck = rows + KC * F;
-  float* tex = ck + n_chunks(kf) * c.P;
-  float* red = tex + KC * c.P;
+  float* A = ck + n_chunks(kf) * NSL * c.P;
+  float* gsh = A + TcSpec<false>::NA * KC * lda;
 
-  float o[5];
-  int n_live;
-  const int kend = forward_checkpointed(c, rows, ck, kf, o, n_live);
-  const float* go = g_outs + ((size_t)c.t * c.P + c.p) * 8;
-  const float g[5] = {go[0], go[1], go[2], go[3], go[4]};
-  reverse_blend<true, false>(c, rows, ck, tex, red, kf, kend, n_live, g, 0.f,
-                             dd + (size_t)c.t * kf * F, nullptr);
+  float o[NSL][5];
+  int kend[NSL], n_live;
+  forward_live(c, q, rows, ck, kf, o, kend, n_live);
+  float g[NSL][5];
+#pragma unroll
+  for (int s = 0; s < NSL; ++s) {
+    const bool in = in_tile<NSL>(c, s, np);
+    const float* go =
+        g_outs + ((size_t)c.t * np + (in ? s * c.P + c.p : 0)) * 8;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) g[s][j] = in ? go[j] : 0.f;
+  }
+  const float gd[NSL] = {};
+  reverse_tile_tc<true, false>(c, q, rows, ck, A, gsh, lda, kf, kend, n_live,
+                               pmat, np, g, gd, dd + (size_t)c.t * kf * F,
+                               nullptr);
 }
 
 // ------------------------------------------------ primal + 6 pose tangents --
-// Shared memory: rows [KC][F] | tangent rows [KC][NTAN][F].
+// One CTA per (tile part, tangent group): a part is PARTS-th of the tile's
+// pixels, one thread per pixel, and a group NTG of the six tangents. Each
+// CTA walks the primal blend of its pixels itself and carries its NTG
+// tangents; group 0 writes the primal outputs. A pixel's arithmetic per
+// tangent is that of one CTA carrying all six over the whole tile, so the
+// outputs do not depend on the split. Shared memory, two buffers: rows
+// [KC][F] | the group's tangent rows [NTG][KC][F], each tangent's chunk
+// copied as one contiguous span with cp.async while the CTA walks the
+// chunk before it.
+template <int NTG, int PARTS>
 __global__ void jvp8_kernel(const float* __restrict__ d,
                             const float* __restrict__ d_tan,
                             const float* __restrict__ tx0,
@@ -278,40 +339,55 @@ __global__ void jvp8_kernel(const float* __restrict__ d,
                             float* __restrict__ touts, int kf, int width,
                             int height) {
   extern __shared__ float smem[];
-  float* rows = smem;
-  float* trows = smem + KC * F;
-  const int P = blockDim.x;
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
+  constexpr int BUF = (1 + NTG) * KC * F;  // floats of one buffer
+  const int P = blockDim.x * PARTS;
+  const int t = blockIdx.x / PARTS;
+  const int j0 = blockIdx.y * NTG;
+  const int p = blockIdx.x % PARTS * blockDim.x + threadIdx.x;
   const float x0 = tx0[t], y0 = ty0[t];
   const float pxl = pmat[3 * P + p], pyl = pmat[4 * P + p];
   const bool pix_ok = (x0 + pxl <= (float)(width - 1)) &&
                       (y0 + pyl <= (float)(height - 1));
   const float* dt = d + (size_t)t * kf * F;
-  const float* dtt = d_tan + (size_t)t * NTAN * kf * F;
+  const float* dtt = d_tan + ((size_t)t * NTAN + j0) * kf * F;
 
   float T = 1.0f;
   float o[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-  float pre[NTAN];      // tangent of log T: sum of -alpha_t / (1 - alpha)
-  float to[NTAN][5];
+  float pre[NTG];      // tangent of log T: sum of -alpha_t / (1 - alpha)
+  float to[NTG][5];
 #pragma unroll
-  for (int j = 0; j < NTAN; ++j) {
+  for (int j = 0; j < NTG; ++j) {
     pre[j] = 0.f;
 #pragma unroll
     for (int c = 0; c < 5; ++c) to[j][c] = 0.f;
   }
+  // chunk ch's rows and tangent rows into buffer ch & 1
+  auto stage = [&](int ch) {
+    const int k0 = ch * KC, n = min(KC, kf - k0);
+    float* buf = smem + (ch & 1) * BUF;
+    stage_span_async(buf, dt + (size_t)k0 * F, n * F);
+#pragma unroll
+    for (int j = 0; j < NTG; ++j)
+      stage_span_async(buf + (1 + j) * KC * F,
+                       dtt + ((size_t)j * kf + k0) * F, n * F);
+    cp_async_commit();
+  };
+  const int nch = n_chunks(kf);
   bool done = false;
-  for (int k0 = 0; k0 < kf; k0 += KC) {
+  stage(0);
+  for (int ch = 0; ch < nch; ++ch) {
+    const int k0 = ch * KC;
     const int n = min(KC, kf - k0);
-    __syncthreads();
-    stage_span(rows, dt + (size_t)k0 * F, n * F);
-    for (int idx = p; idx < NTAN * n * F; idx += P) {
-      const int j = idx / (n * F);
-      const int rem = idx - j * n * F;  // i * F + f
-      trows[(rem / F) * NTAN * F + j * F + (rem % F)] =
-          dtt[((size_t)j * kf + k0) * F + rem];
+    // the other buffer was last read before the previous chunk's barrier
+    if (ch + 1 < nch) {
+      stage(ch + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const float* rows = smem + (ch & 1) * BUF;
+    const float* trows = rows + KC * F;
     for (int i = 0; i < n && !done; ++i) {
       const float* r = rows + i * F;
       const RowEval e = eval_row(r, x0, y0, pxl, pyl, pix_ok);
@@ -327,21 +403,27 @@ __global__ void jvp8_kernel(const float* __restrict__ d,
       const float gy = r[CB] * e.dx + r[CC] * e.dy;
       const float inv_om = 1.0f / om;
       const float w = e.alpha * T;
+      // the tangent sums in fused multiply-adds (the library is built
+      // without contraction, for the primal's thresholds; these decide
+      // none), innermost term first
 #pragma unroll
-      for (int j = 0; j < NTAN; ++j) {
-        const float* rt = trows + (i * NTAN + j) * F;
-        const float s_t = rt[CA] * xx + rt[CC] * yy - rt[CB] * xy -
-                          gx * rt[CU] - gy * rt[CV] + rt[LOGO];
+      for (int j = 0; j < NTG; ++j) {
+        const float* rt = trows + (j * KC + i) * F;
+        const float s_t = fmaf(
+            rt[CA], xx,
+            fmaf(rt[CC], yy,
+                 fmaf(-rt[CB], xy,
+                      fmaf(-gx, rt[CU], fmaf(-gy, rt[CV], rt[LOGO])))));
         const float alpha_t = live ? e.alpha * s_t : 0.0f;
         if (contrib) {
-          const float w_t = alpha_t * T + e.alpha * (T * pre[j]);
-          to[j][0] += w_t * r[R0] + w * rt[R0];
-          to[j][1] += w_t * r[G0] + w * rt[G0];
-          to[j][2] += w_t * r[B0] + w * rt[B0];
-          to[j][3] += w_t * r[CZ] + w * rt[CZ];
+          const float w_t = fmaf(alpha_t, T, e.alpha * (T * pre[j]));
+          to[j][0] = fmaf(w_t, r[R0], fmaf(w, rt[R0], to[j][0]));
+          to[j][1] = fmaf(w_t, r[G0], fmaf(w, rt[G0], to[j][1]));
+          to[j][2] = fmaf(w_t, r[B0], fmaf(w, rt[B0], to[j][2]));
+          to[j][3] = fmaf(w_t, r[CZ], fmaf(w, rt[CZ], to[j][3]));
           to[j][4] += w_t;
         }
-        pre[j] += -alpha_t * inv_om;
+        pre[j] = fmaf(-alpha_t, inv_om, pre[j]);
       }
       if (!contrib) {
         done = true;
@@ -356,10 +438,11 @@ __global__ void jvp8_kernel(const float* __restrict__ d,
     }
     if (__syncthreads_and(done)) break;
   }
-  store8(outs + ((size_t)t * P + p) * 8, o);
+  cp_async_wait<0>();  // a chunk staged past the exit
+  if (blockIdx.y == 0) store8(outs + ((size_t)t * P + p) * 8, o);
 #pragma unroll
-  for (int j = 0; j < NTAN; ++j)
-    store8(touts + (((size_t)t * NTAN + j) * P + p) * 8, to[j]);
+  for (int j = 0; j < NTG; ++j)
+    store8(touts + (((size_t)t * NTAN + j0 + j) * P + p) * 8, to[j]);
 }
 
 }  // namespace
@@ -381,14 +464,23 @@ extern "C" int blend_fwd(const float* d, const float* tx0, const float* ty0,
   return (int)cudaGetLastError();
 }
 
-// A fused step's launch, one CTA per tile; returns its error.
+// A fused step's launch, one CTA of nt threads per tile; returns its error.
 template <typename K, typename... Args>
-cudaError_t launch_fused(K kernel, int n_tiles, int p, size_t smem,
+cudaError_t launch_fused(K kernel, int n_tiles, int nt, size_t smem,
                          cudaStream_t s, Args... args) {
   const cudaError_t rc = launch_prepare(kernel, smem);
   if (rc != cudaSuccess) return rc;
-  kernel<<<n_tiles, p, smem, s>>>(args...);
+  kernel<<<n_tiles, nt, smem, s>>>(args...);
   return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, NSL>) with the pixel slices of a tile of
+// p pixels: one for tiles up to 16 px, MAX_SLICES (the last ones partly or
+// wholly beyond P) above.
+template <typename Fn>
+cudaError_t by_slices(int p, Fn f) {
+  return p > SLICE ? f(std::integral_constant<int, MAX_SLICES>{})
+                   : f(std::integral_constant<int, 1>{});
 }
 
 extern "C" int blend_fo_grad(const float* d, const float* tx0,
@@ -401,15 +493,19 @@ extern "C" int blend_fo_grad(const float* d, const float* tx0,
                              float eps, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = reverse_tc_smem(kf, p, gtd != nullptr);
-  return (int)(gtd ? launch_fused(fo_grad_kernel<true>, n_tiles, p, smem, s,
-                                  d, tx0, ty0, pmat, gt, mask, gtd, sc, dd,
-                                  dd_dep, sums, kf, width, height, use_huber,
-                                  delta, two_delta, delta_sq, eps)
-                   : launch_fused(fo_grad_kernel<false>, n_tiles, p, smem, s,
-                                  d, tx0, ty0, pmat, gt, mask, gtd, sc, dd,
-                                  dd_dep, sums, kf, width, height, use_huber,
-                                  delta, two_delta, delta_sq, eps));
+  const int nt = slice_threads(p);
+  return (int)by_slices(p, [&](auto ns) {
+    constexpr int NSL = decltype(ns)::value;
+    const size_t smem = reverse_tc_smem(kf, nt, NSL, gtd != nullptr);
+    return gtd ? launch_fused(fo_grad_kernel<true, NSL>, n_tiles, nt, smem,
+                              s, d, tx0, ty0, pmat, gt, mask, gtd, sc, dd,
+                              dd_dep, sums, kf, p, width, height, use_huber,
+                              delta, two_delta, delta_sq, eps)
+               : launch_fused(fo_grad_kernel<false, NSL>, n_tiles, nt, smem,
+                              s, d, tx0, ty0, pmat, gt, mask, gtd, sc, dd,
+                              dd_dep, sums, kf, p, width, height, use_huber,
+                              delta, two_delta, delta_sq, eps);
+  });
 }
 
 // madd: nullable [T, kf]; with it the raw rows d blend through
@@ -424,35 +520,38 @@ extern "C" int blend_map_grad(const float* d, const float* tx0,
                               float w_dep, float eps, void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = reverse_tc_smem(kf, p, false);
-  cudaError_t rc;
-  if (madd && gtd)
-    rc = launch_fused(map_grad_madd_kernel<true>, n_tiles, p, smem, s, d,
-                      madd, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf,
-                      width, height, use_exposure, w_rgb, w_dep, eps);
-  else if (madd)
-    rc = launch_fused(map_grad_madd_kernel<false>, n_tiles, p, smem, s,
-                      d, madd, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums,
-                      kf, width, height, use_exposure, w_rgb, w_dep, eps);
-  else if (gtd)
-    rc = launch_fused(map_grad_kernel<true>, n_tiles, p, smem, s, d, tx0,
-                      ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, width,
-                      height, use_exposure, w_rgb, w_dep, eps);
-  else
-    rc = launch_fused(map_grad_kernel<false>, n_tiles, p, smem, s, d,
-                      tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, width,
-                      height, use_exposure, w_rgb, w_dep, eps);
-  return (int)rc;
+  const int nt = slice_threads(p);
+  return (int)by_slices(p, [&](auto ns) {
+    constexpr int NSL = decltype(ns)::value;
+    const size_t smem = reverse_tc_smem(kf, nt, NSL, false);
+    if (madd && gtd)
+      return launch_fused(map_grad_madd_kernel<true, NSL>, n_tiles, nt, smem,
+                          s, d, madd, tx0, ty0, pmat, gt, mask, gtd, sc, dd,
+                          sums, kf, p, width, height, use_exposure, w_rgb,
+                          w_dep, eps);
+    if (madd)
+      return launch_fused(map_grad_madd_kernel<false, NSL>, n_tiles, nt,
+                          smem, s, d, madd, tx0, ty0, pmat, gt, mask, gtd,
+                          sc, dd, sums, kf, p, width, height, use_exposure,
+                          w_rgb, w_dep, eps);
+    if (gtd)
+      return launch_fused(map_grad_kernel<true, NSL>, n_tiles, nt, smem, s,
+                          d, tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf,
+                          p, width, height, use_exposure, w_rgb, w_dep, eps);
+    return launch_fused(map_grad_kernel<false, NSL>, n_tiles, nt, smem, s, d,
+                        tx0, ty0, pmat, gt, mask, gtd, sc, dd, sums, kf, p,
+                        width, height, use_exposure, w_rgb, w_dep, eps);
+  });
 }
 
 template <typename K>
-cudaError_t fused_attrs(K kernel, int p, size_t smem, int* out) {
+cudaError_t fused_attrs(K kernel, int nt, size_t smem, int* out) {
   cudaFuncAttributes a;
   cudaError_t rc = cudaFuncGetAttributes(&a, kernel);
   if (rc == cudaSuccess) rc = launch_prepare(kernel, smem);
   int n = 0;
   if (rc == cudaSuccess)
-    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, p, smem);
+    rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, nt, smem);
   out[0] = a.numRegs;
   out[1] = (int)(smem + a.sharedSizeBytes);
   out[2] = n;
@@ -460,22 +559,27 @@ cudaError_t fused_attrs(K kernel, int p, size_t smem, int* out) {
 }
 
 // Registers per thread, shared memory per CTA (bytes) and resident CTAs
-// per SM of the fused steps at list length kf and P = p, into out [6][3]:
-// fo_grad_kernel mono and RGB-D, map_grad_kernel mono and RGB-D,
-// map_grad_madd_kernel mono and RGB-D.
+// per SM of the tensor-core reverse kernels at list length kf and P = p,
+// into out [7][3]: fo_grad_kernel mono and RGB-D, map_grad_kernel mono and
+// RGB-D, map_grad_madd_kernel mono and RGB-D, bwd_kernel.
 extern "C" int blend_fused_attrs(int kf, int p, int* out) {
-  const size_t mono = reverse_tc_smem(kf, p, false);
-  cudaError_t rc[6] = {
-      fused_attrs(fo_grad_kernel<false>, p, mono, out),
-      fused_attrs(fo_grad_kernel<true>, p, reverse_tc_smem(kf, p, true),
-                  out + 3),
-      fused_attrs(map_grad_kernel<false>, p, mono, out + 6),
-      fused_attrs(map_grad_kernel<true>, p, mono, out + 9),
-      fused_attrs(map_grad_madd_kernel<false>, p, mono, out + 12),
-      fused_attrs(map_grad_madd_kernel<true>, p, mono, out + 15)};
-  for (cudaError_t r : rc)
-    if (r != cudaSuccess) return (int)r;
-  return 0;
+  const int nt = slice_threads(p);
+  return (int)by_slices(p, [&](auto ns) {
+    constexpr int NSL = decltype(ns)::value;
+    const size_t mono = reverse_tc_smem(kf, nt, NSL, false);
+    const cudaError_t rc[7] = {
+        fused_attrs(fo_grad_kernel<false, NSL>, nt, mono, out),
+        fused_attrs(fo_grad_kernel<true, NSL>, nt,
+                    reverse_tc_smem(kf, nt, NSL, true), out + 3),
+        fused_attrs(map_grad_kernel<false, NSL>, nt, mono, out + 6),
+        fused_attrs(map_grad_kernel<true, NSL>, nt, mono, out + 9),
+        fused_attrs(map_grad_madd_kernel<false, NSL>, nt, mono, out + 12),
+        fused_attrs(map_grad_madd_kernel<true, NSL>, nt, mono, out + 15),
+        fused_attrs(bwd_kernel<NSL>, nt, mono, out + 18)};
+    for (cudaError_t r : rc)
+      if (r != cudaSuccess) return r;
+    return cudaSuccess;
+  });
 }
 
 extern "C" int blend_bwd(const float* d, const float* tx0, const float* ty0,
@@ -484,13 +588,19 @@ extern "C" int blend_bwd(const float* d, const float* tx0, const float* ty0,
                          void* stream) {
   if (n_tiles == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = reverse_smem(kf, p, RevSpec<true, false>::NV);
-  const cudaError_t rc = launch_prepare(bwd_kernel, smem);
-  if (rc != cudaSuccess) return (int)rc;
-  bwd_kernel<<<n_tiles, p, smem, s>>>(d, tx0, ty0, pmat, g_outs, dd, kf,
-                                      width, height);
-  return (int)cudaGetLastError();
+  const int nt = slice_threads(p);
+  return (int)by_slices(p, [&](auto ns) {
+    constexpr int NSL = decltype(ns)::value;
+    return launch_fused(bwd_kernel<NSL>, n_tiles, nt,
+                        reverse_tc_smem(kf, nt, NSL, false), s, d, tx0, ty0,
+                        pmat, g_outs, dd, kf, p, width, height);
+  });
 }
+
+// The jvp8 kernel's CTAs: NTAN / JVP_NTG tangent groups times JVP_PARTS
+// pixel parts per tile.
+constexpr int JVP_NTG = 3;
+constexpr int JVP_PARTS = 2;
 
 extern "C" int blend_jvp8(const float* d, const float* d_tan,
                           const float* tx0, const float* ty0,
@@ -498,9 +608,11 @@ extern "C" int blend_jvp8(const float* d, const float* d_tan,
                           int n_tiles, int kf, int p, int width, int height,
                           void* stream) {
   if (n_tiles == 0) return 0;
-  const size_t smem = (size_t)KC * F * (1 + NTAN) * sizeof(float);
+  static_assert(NTAN % JVP_NTG == 0, "whole tangent groups");
+  const size_t smem = 2 * (size_t)KC * F * (1 + JVP_NTG) * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  jvp8_kernel<<<n_tiles, p, smem, s>>>(d, d_tan, tx0, ty0, pmat, outs, touts,
-                                       kf, width, height);
+  const dim3 grid(n_tiles * JVP_PARTS, NTAN / JVP_NTG);
+  jvp8_kernel<JVP_NTG, JVP_PARTS><<<grid, p / JVP_PARTS, smem, s>>>(
+      d, d_tan, tx0, ty0, pmat, outs, touts, kf, width, height);
   return (int)cudaGetLastError();
 }

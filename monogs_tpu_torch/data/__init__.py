@@ -1,1 +1,3 @@
-from .synthetic import SyntheticDataset, make_synthetic_scene, orbit_pose  # noqa: F401
+from .synthetic import (  # noqa: F401
+    SyntheticDataset, make_synthetic_scene, orbit_pose, tum_like_amps,
+)

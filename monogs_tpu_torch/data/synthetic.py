@@ -2,16 +2,20 @@
 
 Counterpart of ``monogs_tpu/data/synthetic.py``: an opaque textured bumpy
 surface of Gaussians with foreground clusters at distinct depths, a smooth
-orbit of world->camera poses, and a dataset of frames rendered from the
-scene. Random draws come from a ``torch.Generator``, so a scene has the same
-statistics as the JAX package's but not the same numbers; tests that need
-the same map build it once and carry it across with ``convert.py``.
+orbit of world->camera poses (its amplitudes optionally calibrated to a
+handheld sequence's per-frame motion, ``tum_like_amps``), and a dataset of
+frames rendered from the scene with the reference's default render
+configuration. Random draws come from a ``torch.Generator``, so a scene has
+the same statistics as the JAX package's but not the same numbers; tests
+that need the same map build it once and carry it across with
+``convert.py``. The poses are deterministic and match the JAX package's.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .. import resolve_device
@@ -84,24 +88,58 @@ def orbit_pose(t: float, trans_amp=0.25, rot_amp=0.06, pan=None,
     return se3.se3_exp(tau)
 
 
+def tum_like_amps(n_frames: int, step_trans: float = 0.008,
+                  step_rot: float = 0.006):
+    """(trans_amp, rot_amp) such that the orbit's mean per-frame motion is
+    that of a handheld sequence, whatever ``n_frames`` (the orbit covers
+    its whole path in n_frames): TUM fr3/long_office's published pace,
+    about 0.25 m/s and 10 deg/s at 30 Hz, is 8 mm and 0.006 rad a frame.
+    Calibrated numerically as the JAX package does: the unit-amplitude
+    orbit's mean per-frame translation and rotation, measured once in
+    float32, scale the steps (the two couple only at second order)."""
+    ts = [i / max(n_frames, 1) for i in range(n_frames)]
+    tt = [orbit_pose(t, trans_amp=1.0, rot_amp=0.0, device="cpu").numpy()
+          for t in ts]
+    tr = [orbit_pose(t, trans_amp=0.0, rot_amp=1.0, device="cpu").numpy()
+          for t in ts]
+    dt = np.mean([np.linalg.norm(tt[i + 1][:3, 3] - tt[i][:3, 3])
+                  for i in range(n_frames - 1)])
+    dr = np.mean([
+        np.arccos(np.clip(
+            (np.trace(tr[i + 1][:3, :3] @ tr[i][:3, :3].T) - 1) / 2, -1, 1))
+        for i in range(n_frames - 1)])
+    return float(step_trans / max(dt, 1e-9)), float(step_rot / max(dr, 1e-9))
+
+
 class SyntheticDataset:
     """Frames rendered from a synthetic scene along the orbit:
-    ``dataset[idx] -> (image [3,H,W], depth [H,W] or None, pose T_cw)``."""
+    ``dataset[idx] -> (image [3,H,W], depth [H,W] or None, pose T_cw)``,
+    plus the intrinsics attributes (``fx``, ``fy``, ``cx``, ``cy``,
+    ``width``, ``height``, ``fovx``, ``fovy``). ``motion`` "tum_like"
+    replaces the amplitudes by ``tum_like_amps(n_frames)``; the frames are
+    rendered with ``render_cfg`` or the reference's default
+    ``RenderConfig()``."""
 
     def __init__(self, intr: Intrinsics, n_frames: int = 32,
                  n_gauss: int = 4096, seed: int = 0,
                  sensor_type: str = "depth",
                  render_cfg: RenderConfig | None = None,
                  trans_amp: float = 0.25, rot_amp: float = 0.06, pan=None,
-                 device="cuda"):
+                 motion: str = "orbit", device="cuda"):
+        if motion == "tum_like":
+            trans_amp, rot_amp = tum_like_amps(n_frames)
+        elif motion != "orbit":
+            raise ValueError(f"unknown synthetic motion mode: {motion}")
         dev = resolve_device(device)
         self.intr = intr
+        self.fx, self.fy = intr.fx, intr.fy
+        self.cx, self.cy = intr.cx, intr.cy
         self.width, self.height = intr.width, intr.height
+        self.fovx, self.fovy = intr.fovx, intr.fovy
         self.sensor_type = sensor_type
         self.has_depth = sensor_type != "monocular"
         self.num_imgs = n_frames
-        cfg = (render_cfg or RenderConfig(backend="pallas_lists"))._replace(
-            with_n_touched=False)
+        cfg = (render_cfg or RenderConfig())._replace(with_n_touched=False)
         gen = torch.Generator(device=dev).manual_seed(seed)
         self.scene = make_synthetic_scene(gen, n=n_gauss)
         self.poses = [orbit_pose(i / max(n_frames, 1), trans_amp, rot_amp,

@@ -42,7 +42,9 @@ Kernels (TPU kernel replaced -> bound on the H100 -> design):
   TF32 products on the tensor cores (float32 operands split into a big
   part and a remainder), added over the warps in a fixed order; no
   atomics. Chunks that no pixel walks into get zero rows. The RGB-D
-  variant carries the depth chain as a third product.
+  variant carries the depth chain as a third product. A tile of more
+  than 256 pixels (tile 32: P 1024) is walked by 256 threads in slices of
+  256 pixels, each slice's products added into the same sums in turn.
 - ``map_grad_lists`` <- ``_map_grad_kernel``, and with ``madd`` its
   ``with_madd`` variant; bound and design as ``fo_grad_lists`` (29 more
   operations per live contributing pair, 33 for RGB-D), one reverse chain
@@ -50,11 +52,23 @@ Kernels (TPU kernel replaced -> bound on the H100 -> design):
   each raw row's log-opacity as the rows are staged, in the forward and
   the checkpointed reverse alike, so the caller makes no masked copy of
   the rows; 4 bytes per row more than the 64 of a row.
+- ``blend_lists_vjp`` <- ``_bwd_kernel``; bound by FP32 operations (34
+  per live contributing pair beyond the forward's), design as
+  ``fo_grad_lists`` with the output cotangent read per pixel, and its
+  depth column as a fourth feature sum.
 - ``blend_lists_jvp8`` <- ``_jvp8_kernel``; bound by FP32 operations (26
   per walked pair and 229 more per contributing one for the seven chains;
-  about 20 per byte, so the bytes bind nearly as hard). The primal and the
-  six tangent carries of log T live in registers; tangent rows are staged
-  in shared memory beside the rows.
+  about 20 per byte, so the bytes bind nearly as hard). The card issues
+  these operations about as fast as it can once an SM holds 16 warps, and
+  a tile gives 8: one CTA per (half tile, group of three tangents), each
+  walking the primal of its pixels itself (39 of a contributing pair's
+  268 operations), puts four or five CTAs on every SM where one CTA per
+  tile left most SMs with one and some with two. The tangent sums are
+  fused multiply-adds (the primal's, which decide the thresholds, are
+  not), so they round otherwise than the plain version's. The primal and
+  the tangent carries of log T live in registers; the next chunk's rows
+  and tangent rows are copied into shared memory (``cp.async``, two
+  buffers) while the CTA walks the current one.
 """
 
 from __future__ import annotations
@@ -332,19 +346,6 @@ def _check_common(d, tx0, ty0, pmat):
     return n_tiles, kf, p
 
 
-# the fused steps' CTA keeps its operands for the tensor cores in shared
-# memory, with one thread per pixel at up to 95 registers: tiles up to 16 px
-_FUSED_MAX_P = 256
-
-
-def _check_fused(d, tx0, ty0, pmat):
-    n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
-    if p > _FUSED_MAX_P:
-        raise ValueError(f"pmat: P={p}; the fused steps take P up to "
-                         f"{_FUSED_MAX_P} (tiles up to 16 px)")
-    return n_tiles, kf, p
-
-
 def _lib():
     from .._build import library
 
@@ -404,7 +405,7 @@ def fo_grad_lists(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
         return fo_grad_lists_plain(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb,
                                    width, height, use_huber, delta, eps,
                                    gtd_t)
-    n_tiles, kf, p = _check_fused(d, tx0, ty0, pmat)
+    n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
     _check("gt_t", gt_t, (n_tiles, p, 3))
     _check("mask_t", mask_t, (n_tiles, p, 1))
     if gtd_t is not None:
@@ -434,6 +435,11 @@ def blend_lists_jvp8(d, d_tan, tx0, ty0, pmat, width: int, height: int):
                                       height)
     n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
     _check("d_tan", d_tan, (n_tiles, _NTAN, kf, _F))
+    for name, x in (("d", d), ("d_tan", d_tan)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the jvp8 kernel copies rows 16 bytes "
+                             f"at a time; the tensor must start at a "
+                             f"16-byte boundary")
     outs = torch.empty((n_tiles, p, 8), dtype=torch.float32, device=d.device)
     touts = torch.empty((n_tiles, _NTAN, p, 8), dtype=torch.float32,
                         device=d.device)
@@ -504,7 +510,7 @@ def map_grad_lists(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
         return map_grad_lists_plain(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb,
                                     width, height, use_exposure, alpha, eps,
                                     gtd_t, px_frac, madd)
-    n_tiles, kf, p = _check_fused(d, tx0, ty0, pmat)
+    n_tiles, kf, p = _check_common(d, tx0, ty0, pmat)
     _check("gt_t", gt_t, (n_tiles, p, 3))
     _check("mask_t", mask_t, (n_tiles, p, 1))
     if gtd_t is not None:

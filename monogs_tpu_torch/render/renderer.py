@@ -724,6 +724,24 @@ def render_fo_grad_tiles(gauss: GaussianArrays, T_cw, intr: Intrinsics,
     return loss, l1, torch.cat([g_tau, g_ea[None], g_eb[None]])
 
 
+def segment_sum(n: int, sids, vals):
+    """out [n, ...]: out[i] = the sum of vals[j] over the j with
+    sids[j] == i, added in the order of j (``sids`` sorted ascending), so
+    that every run gives the same bits on any device. ``index_add_`` adds
+    with atomics on the card, in an order that changes from run to run;
+    this is the fixed-order sum of the A/B knobs' pull-backs."""
+    ends = torch.searchsorted(sids, torch.arange(n + 1, device=sids.device))
+    return torch.segment_reduce(vals, "sum", lengths=torch.diff(ends),
+                                axis=0, unsafe=True)
+
+
+def scatter_sum(n: int, ids, vals):
+    """``segment_sum`` of vals [M, ...] by unsorted ids [M]: rows with the
+    same id are added in the order of j (a stable sort of the ids)."""
+    perm = torch.argsort(ids, stable=True)
+    return segment_sum(n, ids[perm], vals[perm])
+
+
 def render_map_grad(gauss: GaussianArrays, T_cw, intr: Intrinsics,
                     cfg: RenderConfig, lists: TileLists, gt_t, mask_t, tau,
                     off, ea, eb, initialization: bool, alpha: float,
@@ -744,15 +762,15 @@ def render_map_grad(gauss: GaussianArrays, T_cw, intr: Intrinsics,
 
     ``sortperm`` = (perm, sids) ([Tf Kf] each: the frozen argsort of the
     flat list ids and the ids in that order) pulls the row cotangents back
-    to the Gaussians by a gather in that order and an ``index_add_`` over
+    to the Gaussians by a gather in that order and a ``segment_sum`` over
     the sorted ids, instead of autograd's transpose of the gather: the
     same adds in another order (full lists only, as in the JAX package).
     ``gather_first`` gathers the listed rows' parameters before preprocess,
     so the differentiated pipeline runs over S Kf rows, scatters each
-    leaf's row cotangents back by list id with ``index_add_``, and takes
+    leaf's row cotangents back by list id with ``scatter_sum``, and takes
     ``radii`` from one full-N preprocess without gradients. Both differ
-    from the default only in the order of float32 additions (and, on the
-    card, ``index_add_``'s atomics).
+    from the default only in the order of float32 additions, and give the
+    same bits on every run.
 
     Returns (loss, g_leaves, g_tau, g_off, g_ea, g_eb, radii) with g_leaves
     the gradients of (xyz, sh, log_scale, quat, opa_logit)."""
@@ -778,9 +796,11 @@ def render_map_grad(gauss: GaussianArrays, T_cw, intr: Intrinsics,
             d.detach(), intr, cfg, gt_t, mask_t, ea, eb, initialization,
             alpha, **kw)
         gg = torch.autograd.grad(d, leaves + [tau, off_g], grad_outputs=dd)
-        g_leaves = tuple(torch.zeros_like(x).index_add_(0, ids, g)
-                         for x, g in zip(full, gg[:5]))
-        g_off = torch.zeros_like(off).index_add_(0, ids, gg[6])
+        n = off.shape[0]
+        perm = torch.argsort(ids, stable=True)
+        sids = ids[perm]
+        g_leaves = tuple(segment_sum(n, sids, g[perm]) for g in gg[:5])
+        g_off = segment_sum(n, sids, gg[6][perm])
         with torch.no_grad():
             radii = preprocess(*(full[i] for i in (0, 2, 3, 4, 1)),
                                gauss.active, se3.retract(T_cw, tau), intr,
@@ -820,7 +840,7 @@ def render_map_grad(gauss: GaussianArrays, T_cw, intr: Intrinsics,
                            torch.zeros_like(dd[..., _LOGO]))
         dd = torch.cat([dd[..., :_LOGO], logo[..., None],
                         dd[..., _LOGO + 1:]], dim=-1).reshape(-1, _F)
-        dpacked = torch.zeros_like(packed).index_add_(0, sids, dd[perm])
+        dpacked = segment_sum(packed.shape[0], sids, dd[perm])
         grads = torch.autograd.grad(packed, leaves + [tau, off],
                                     grad_outputs=dpacked)
     return (loss, tuple(grads[:5]), grads[5], grads[6], g_ea, g_eb,

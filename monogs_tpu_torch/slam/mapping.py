@@ -9,11 +9,13 @@ the JAX package's two branches:
   over all tiles or a fresh random tile subset (``tile_frac < 1``). Its
   A/B knobs: ``io_batch`` (all B views preprocessed in one graph, one flat
   gather at view offsets, the kernel's in-kernel validity mask ``madd``
-  on the raw rows, one flat ``index_add_`` of the row cotangents and one
-  pull-back; no tile subsets), ``scatter_segsum`` (the row cotangents go
-  back through a frozen argsort of each view's list ids, rebuilt with the
-  lists; no tile subsets) and ``gather_first`` (preprocess over the
-  listed rows only, per-leaf ``index_add_``);
+  on the raw rows, one flat sum of the row cotangents and one pull-back;
+  no tile subsets), ``scatter_segsum`` (the row cotangents go back through
+  a frozen argsort of each view's list ids, rebuilt with the lists; no
+  tile subsets) and ``gather_first`` (preprocess over the listed rows
+  only, a sum per leaf). Their sums add each Gaussian's rows in a fixed
+  order (``renderer.segment_sum``), so that a BA iteration gives the same
+  bits on every run;
 - unfused (otherwise): per view, the mapping loss of a differentiable
   ``render`` and its gradients by autograd, the isotropic regulariser
   inside the loss. With ``bin_margin == 0`` every render bins its view
@@ -64,7 +66,7 @@ from ..render.primitives import preprocess
 from ..render.renderer import (
     _F, GaussianArrays, RenderConfig, TileLists, _check_backend, _pack,
     _tile_origins, build_tile_lists, map_grad_from_rows, render,
-    render_batch, render_map_grad, tile_images,
+    render_batch, render_map_grad, scatter_sum, tile_images,
 )
 
 
@@ -282,8 +284,9 @@ def _io_batch_grads(gauss: GaussianArrays, cams: CamBatch, T, ea, eb,
     """The fused branch with ``io_batch`` (JAX mapping.py:405-495): every
     view's preprocess and pack in one autograd graph ([B, N, F]), one flat
     gather of the raw rows at view offsets, the validity mask as ``madd``,
-    one map_grad kernel per view on the raw rows, one flat ``index_add_``
-    of the row cotangents (an invalid view's zeroed) and one pull-back.
+    one map_grad kernel per view on the raw rows, one flat fixed-order sum
+    of the row cotangents (``scatter_sum``; an invalid view's zeroed) and
+    one pull-back.
     Returns (g_leaves, [(g_tau, g_off, g_ea, g_eb, radii)] per view)."""
     b, n, dev = T.shape[0], gauss.xyz.shape[0], gauss.xyz.device
     leaves = [x.detach().requires_grad_(True) for x in
@@ -314,8 +317,8 @@ def _io_batch_grads(gauss: GaussianArrays, cams: CamBatch, T, ea, eb,
         for v in range(b)]
     dd_b = (torch.stack([o[1] for o in outs])
             * cams.valid.to(torch.float32)[:, None, None, None])
-    dpacked = torch.zeros((b * n, _F), device=dev).index_add_(
-        0, gidx, dd_b.reshape(-1, _F)).reshape(b, n, _F)
+    dpacked = scatter_sum(b * n, gidx, dd_b.reshape(-1, _F)).reshape(b, n,
+                                                                     _F)
     grads = torch.autograd.grad(packed_b, leaves + [taus, offs],
                                 grad_outputs=dpacked)
     return list(grads[:5]), [

@@ -16,7 +16,10 @@ the madd variant is then left out of the turns. ``blend_fused_attrs`` (a
 report of the fused steps' registers and shared memory, which the turns do
 not call) may be missing from the other builds.
 
-It prints each build's registers per kernel (``ptxas -v``), then runs
+It prints each build's registers per kernel (``ptxas -v``), then whether
+the forward blends' and jvp8's outputs at the tracking shapes have the
+same bits in every build as in the first other build (a redesign that
+keeps each pixel's arithmetic must give them), then runs
 chip_smoke's tracking and mapping kernel phases (kernels 1-6 at the main
 path's shapes and the madd variant at its two, each held against its
 plain version) with the libraries in turns: each round runs every build
@@ -117,6 +120,31 @@ def build(name: str, src: Path, flags: list[str]):
     return lib, regs
 
 
+def same_bits(libs, first, rows, intr):
+    """{kernel: {build: whether its outputs equal build ``first``'s bit
+    for bit}} for fwd and fwd_counts over the frame and jvp8 over the
+    tracking subset."""
+    from monogs_tpu_torch import _build
+    from monogs_tpu_torch.render import blend_lists as bl
+
+    d_full, tx0, ty0, pmat, tsel, _, d_j, d_tan = rows
+    wh = (intr.width, intr.height)
+    calls = {
+        "fwd": lambda: (bl.blend_lists(d_full, tx0, ty0, pmat, *wh),),
+        "fwd_counts": lambda: bl.blend_lists_counts(d_full, tx0, ty0, pmat,
+                                                    *wh),
+        "jvp8": lambda: bl.blend_lists_jvp8(d_j, d_tan, tx0[tsel],
+                                            ty0[tsel], pmat, *wh),
+    }
+    outs = {}
+    for name, lib in libs.items():
+        _build._LIBS["blend_lists"] = lib
+        outs[name] = {k: f() for k, f in calls.items()}
+    return {k: {name: all(bool(torch.equal(x, y)) for x, y in
+                          zip(o[k], outs[first][k]))
+                for name, o in outs.items()} for k in calls}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     other = ap.add_mutually_exclusive_group(required=True)
@@ -157,6 +185,9 @@ def main():
     poses = poses_fn(3, 42)
     frame = cs.render_frames(torch, scene, poses[2:], intr, cfg,
                              with_depth=True)[0][0]
+    print(json.dumps({"same_bits_as": others[0], **same_bits(
+        libs, others[0], cs.tracking_rows(torch, intr, cfg, tcfg, scene,
+                                          poses[1]), intr)}), flush=True)
     measures = ("ms", "device_ms")
     times: dict[str, dict[str, dict[str, list[float]]]] = {}
     names = others + ["this"]
@@ -170,7 +201,8 @@ def main():
                                   frame, e_exp, strict=False)
         entries.update(cs.mapping_kernel_phase(torch, intr, cfg, scene,
                                                poses[1], frame, e_exp,
-                                               with_madd=with_madd))
+                                               with_madd=with_madd,
+                                               strict=False))
         for e in entries.values():
             for m in measures:
                 times.setdefault(m, {}).setdefault(e["name"], {}).setdefault(

@@ -11,7 +11,10 @@ and prints one JSON line per kernel: whether its instructions are the same
 in both builds (addresses and encodings left out, names demangled with
 ``cu++filt`` so that the anonymous namespace's per-file tag does not
 count), each build's instruction count, and this build's count of
-tensor-core (HMMA), shuffle (SHFL) and barrier (BAR) instructions. For
+tensor-core (HMMA), shuffle (SHFL) and barrier (BAR) instructions. A
+kernel of this build that the other lacks is paired with the other's of
+the same name less its parameter list and a last numeric template
+argument (``base_name``: a pixel-slice count or tangent group size). For
 both builds it counts the HMMA that are predicated or lie in a region
 where the warp may be diverged (between a ``BSSY`` and the reconvergence
 point it names, or between a forward branch on a per-thread predicate and
@@ -114,6 +117,17 @@ def hmma_unsafe(ins: list[tuple[int, str]]) -> int:
                     or any(s < a < t for s, t in regions)))
 
 
+def base_name(fn: str) -> str:
+    """A demangled kernel's name without its parameter list and without a
+    last template argument that is a number (a pixel-slice count or a
+    tangent group's size that the other build's kernel may lack):
+    ``void bwd_kernel<1>(const float*, ...)`` -> ``bwd_kernel``,
+    ``void fo_grad_kernel<false, 4>(...)`` -> ``fo_grad_kernel<false>``."""
+    name = re.sub(r"^void ", "", fn.split("(")[0])
+    name = re.sub(r"<\d+>$", "", name)
+    return re.sub(r", \d+>$", ">", name)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", type=Path, required=True,
@@ -125,10 +139,17 @@ def main():
         ours = sass(_build.SOURCES[name.split(".")[0]], "this", args.dump)
         theirs = sass(args.against / "monogs_tpu_torch" / "csrc" / name,
                       "other", args.dump)
-        for fn in sorted(set(ours) | set(theirs)):
-            a, b = ours.get(fn), theirs.get(fn)
+        by_base = {base_name(fn): fn for fn in theirs}
+        pairs = [(fn, fn if fn in theirs else by_base.get(base_name(fn)))
+                 for fn in sorted(ours)]
+        paired = {o for _, o in pairs}
+        pairs += [(None, fn) for fn in sorted(theirs) if fn not in paired]
+        for fn, other in pairs:
+            a = ours.get(fn) if fn else None
+            b = theirs.get(other) if other else None
             print(json.dumps({
-                "source": name, "kernel": fn,
+                "source": name, "kernel": fn or other,
+                "other_kernel": other if other != fn else None,
                 "same": (a is not None and b is not None
                          and [i for _, i in a] == [i for _, i in b]),
                 "instructions": len(a) if a else None,

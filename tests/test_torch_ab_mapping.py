@@ -31,9 +31,9 @@ branch as with gather_first): at most 0.5 % of the parameters beyond 1e-4,
 none beyond 1e-3, poses and exposures 1e-5, visibility exact; renders
 as test_torch_render.py (image and opacity atol 2e-5, depth 2e-4,
 tangents rtol 1e-3 plus 2e-4 of the channel maximum). The knobs change only
-the order of float32 additions against the default branch (``index_add_``
-against autograd's gather transpose), so the port's knob against its own
-default is held to the same bounds."""
+the order of float32 additions against the default branch (a fixed-order
+sum against autograd's gather transpose), so the port's knob against its
+own default is held to the same bounds."""
 
 import jax
 import jax.numpy as jnp
@@ -149,13 +149,29 @@ def test_map_grad_madd_parity(madd_case, rgbd):
 
 # ------------------------------------------------ render_map_grad's knobs
 
+@pytest.fixture(scope="module")
+def grad_inputs():
+    """map_grad_inputs(3, rgbd, subset), built once per (rgbd, subset) and
+    shared by the knobs (the JAX binning and renders of the view run once
+    each)."""
+    cache = {}
+
+    def get(rgbd, subset):
+        if (rgbd, subset) not in cache:
+            cache[rgbd, subset] = map_grad_inputs(3, rgbd, subset)
+        ja, ta, kj, kt = cache[rgbd, subset]
+        return ja, ta, dict(kj), dict(kt)
+
+    return get
+
+
 @pytest.mark.parametrize("rgbd", [False, True])
 @pytest.mark.parametrize("knob", ["sortperm", "gather_first",
                                   "gather_first_subset"])
-def test_render_map_grad_knob_parity(knob, rgbd):
+def test_render_map_grad_knob_parity(grad_inputs, knob, rgbd):
     """Loss and every gradient with the knob against the JAX package with
     the same knob; radii exact."""
-    ja, ta, kj, kt = map_grad_inputs(3, rgbd, knob.endswith("subset"))
+    ja, ta, kj, kt = grad_inputs(rgbd, knob.endswith("subset"))
     if knob == "sortperm":
         flat = ta[4].idx.reshape(-1)
         perm = torch.argsort(flat, stable=True)
@@ -207,6 +223,23 @@ def run_port(window, mc, draws):
                           tmap.MapConfig(**mc), tgm.MapHyper(), draws=draws)
 
 
+@pytest.fixture(scope="module")
+def default_runs(window):
+    """The port's default branch on the window, run once per configuration
+    and shared by the knobs that compare with it (io_batch, scatter_segsum
+    and gather_first share one: the same configuration and, at tile_frac
+    1.0, the same draws)."""
+    cache = {}
+
+    def get(base, draws):
+        key = tuple(sorted(base.items()))
+        if key not in cache:
+            cache[key] = run_port(window, base, draws)
+        return cache[key]
+
+    return get
+
+
 def assert_same_result(b, a, threshold_flips=False):
     """Port result ``b`` against a JAX tuple or another port result ``a``.
     ``threshold_flips``: at most 0.5 % of the parameters beyond 1e-4 and
@@ -230,7 +263,7 @@ def assert_same_result(b, a, threshold_flips=False):
 
 
 @pytest.mark.parametrize("knob", list(KNOBS))
-def test_map_iters_knob_parity(window, knob):
+def test_map_iters_knob_parity(window, default_runs, knob):
     """Three iterations with the knob through both packages (poses and
     exposures of two views optimised), and the port's knob against its
     own default branch (fused, or unfused per view for batch_render) on
@@ -251,7 +284,7 @@ def test_map_iters_knob_parity(window, knob):
     assert npy(b.visibility).sum() > 0
     base = {k: v for k, v in mc.items() if k not in (
         "io_batch", "scatter_segsum", "gather_first", "batch_render")}
-    assert_same_result(b, run_port(window, base, draws))
+    assert_same_result(b, default_runs(base, draws))
 
 
 # ------------------------------------------------------- render surface

@@ -181,8 +181,8 @@ def test_fo_grad_parity(rgbd, k_fine):
         assert ddd is None and jddd is None
 
 
-# ---- the arithmetic of the CUDA fused steps (csrc/blend_common.cuh,
-# record_chunk and reverse_chunk_tc), emulated: the row sums are TF32
+# ---- the arithmetic of the CUDA fused steps and blend VJP
+# (csrc/blend_common.cuh, reverse_chunk_tc), emulated: the row sums are TF32
 # products on the tensor cores with each float32 operand split into a TF32
 # big part and a TF32 remainder, and the rows of the chunks of 32 that no
 # pixel walks into get zeros without a reverse.
@@ -355,6 +355,32 @@ def test_fo_grad_tc_precision(rgbd, k_fine):
             assert min(ex) > 2 * TF32_SPLIT_FRAC, ex
 
 
+@pytest.mark.parametrize("k_fine", [96, 256])
+def test_blend_vjp_tc_precision(k_fine):
+    """The blend VJP's arithmetic on the card (the fused steps' tensor-core
+    reverse with the output cotangent of every column read per pixel: r,
+    g, b and depth as feature sums, acc through wbar) against the plain
+    version in float64: the split TF32 products meet chip_smoke's bound
+    (f64_excess at most TF32_SPLIT_FRAC) with room, single passes do not."""
+    d, _, tx0, ty0, pmat = rows(k_fine, seed=6)
+    g_outs = torch.from_numpy(np.random.default_rng(7).normal(
+        size=(d.shape[0], pmat.shape[1], 8)).astype(np.float32))
+    f = tbl._forward_plain(d, tx0, ty0, pmat, W, H)
+    pix_ok = ((tx0[:, None] + pmat[3] <= W - 1)
+              & (ty0[:, None] + pmat[4] <= H - 1))
+    plain = tbl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H)
+    dd64 = tbl.blend_lists_vjp_plain(*(x.double() for x in (
+        d, tx0, ty0, pmat, g_outs)), W, H)
+    assert float(torch.abs(plain).max()) > 0
+    for split in (True, False):
+        ex = f64_excess(torch, tc_reverse(f, pmat, g_outs, pix_ok, split),
+                        plain, dd64)
+        if split:
+            assert ex <= TF32_SPLIT_FRAC / 4, ex
+        else:
+            assert ex > 2 * TF32_SPLIT_FRAC, ex
+
+
 def d_chunks(kf):
     return (kf + KC - 1) // KC
 
@@ -370,6 +396,83 @@ def test_jvp8_parity(k_fine):
     assert_outs(npy(outs), np.asarray(jo))
     assert_per_column(npy(touts), np.asarray(jt), 2e-4, "touts")
     assert np.abs(npy(touts)).max() > 1.0
+
+
+def fma(a, b, c):
+    """a b + c rounded once to float32, as CUDA's fmaf: the product of two
+    float32 values is exact in float64, and the float64 sum rounded to
+    float32 is fmaf's result but where the two roundings meet (one ulp,
+    rarely)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def jvp8_rows(d, d_tan, tx0, ty0, pmat, fused=True):
+    """touts [T, 6, P, 8] of the jvp8 kernel's arithmetic: the primal as
+    the plain version computes it (the kernel rounds s, alpha and T the
+    same way), each pixel's tangent carries and sums added row by row in
+    the kernel's order, with its fused multiply-adds (``fused`` False: a
+    product and a sum, each rounded, as the kernel before them). Rows at
+    or after a pixel's terminating row change nothing the outputs read."""
+    mad = fma if fused else (lambda a, b, c: a * b + c)
+    f = tbl._forward_plain(d, tx0, ty0, pmat, W, H)
+    n_t, kf, p = f["w"].shape
+    pre = torch.zeros(n_t, tbl._NTAN, p)
+    to = torch.zeros(n_t, tbl._NTAN, p, 8)
+    for k in range(kf):
+        def at(name):
+            return f[name][:, k, None]                       # [T, 1, P]
+
+        def col(i):
+            return d_tan[:, :, k, i, None]                    # [T, 6, 1]
+
+        alpha, tx, dx, dy = at("alpha"), at("t_excl"), at("dx"), at("dy")
+        contrib = at("contrib")
+        a, b, c = (f[n][:, k, None, None] for n in ("a", "b", "c"))
+        xx, yy, xy = -0.5 * (dx * dx), -0.5 * (dy * dy), dx * dy
+        gx, gy = a * dx + b * dy, b * dx + c * dy
+        inv_om = 1.0 / (1.0 - alpha)
+        s_t = mad(col(tbl._CA), xx, mad(col(tbl._CC), yy, mad(
+            -col(tbl._CB), xy, mad(-gx, col(tbl._U), mad(
+                -gy, col(tbl._V), col(tbl._LOGO))))))
+        alpha_t = torch.where(at("ok") & (alpha < 0.99), alpha * s_t,
+                              torch.zeros_like(s_t))
+        w_t = mad(alpha_t, tx, alpha * (tx * pre))
+        w = alpha * tx
+        for ci, fc in enumerate((tbl._R0, tbl._G0, tbl._B0, tbl._Z)):
+            new = mad(w_t, d[:, k, fc, None, None],
+                      mad(w, col(fc), to[..., ci]))
+            to[..., ci] = torch.where(contrib, new, to[..., ci])
+        to[..., 4] = torch.where(contrib, to[..., 4] + w_t, to[..., 4])
+        pre = torch.where(contrib, mad(-alpha_t, inv_om, pre), pre)
+    return to
+
+
+@pytest.mark.parametrize("k_fine", [96, 256])
+def test_jvp8_fma_precision(k_fine):
+    """The jvp8 kernel's tangent sums in fused multiply-adds against the
+    plain version in float64: within chip_smoke's bound (f64_excess at most
+    TF32_SPLIT_FRAC of a channel's largest magnitude beyond the float32
+    plain version's own error; both the fused and the unfused row order
+    read about 3e-7 at 96 rows and 1.8e-6 at 256), and no more than twice
+    the unfused row order's largest error; within the card's tolerance
+    of the float32 plain version, whose bits they do not give."""
+    d, d_tan, tx0, ty0, pmat = rows(k_fine, seed=5)
+    plain = tbl.blend_lists_jvp8_plain(d, d_tan, tx0, ty0, pmat, W, H)[1]
+    t64 = tbl.blend_lists_jvp8_plain(*(x.double() for x in (
+        d, d_tan, tx0, ty0, pmat)), W, H)[1]
+    got = jvp8_rows(d, d_tan, tx0, ty0, pmat)
+    unfused = jvp8_rows(d, d_tan, tx0, ty0, pmat, fused=False)
+    assert f64_excess(torch, got, plain, t64) <= TF32_SPLIT_FRAC
+    scale = torch.amax(torch.abs(t64).reshape(-1, 8), 0).clamp_min(1e-300)
+
+    def err(x):
+        return float((torch.abs(x.double() - t64).reshape(-1, 8).amax(0)
+                      / scale).max())
+
+    assert err(got) <= 2 * err(unfused), (err(got), err(unfused))
+    assert not torch.equal(got, plain)
+    assert_per_column(npy(got), npy(plain), 2e-4, "touts")
+    assert float(torch.abs(t64).max()) > 1.0
 
 
 def test_wrappers_check_devices():

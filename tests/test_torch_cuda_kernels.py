@@ -37,8 +37,8 @@ def card():
     return torch.device("cuda")
 
 
-def scene_rows(dev, n=3000, k_fine=96):
-    cfg = CFG._replace(k_fine=k_fine)
+def scene_rows(dev, n=3000, k_fine=96, tile=16):
+    cfg = CFG._replace(k_fine=k_fine, tile=tile)
     g = torch.Generator().manual_seed(0)
     scene = make_synthetic_scene(g, n=n, spread=2.0, depth_mean=3.0,
                                  scale_min=0.03, scale_max=0.09)
@@ -114,14 +114,29 @@ def test_fo_grad_on_card(card, rgbd):
         assert_per_column(ddd, pddd, 1e-4)
 
 
-def test_jvp8_on_card(card):
-    _, d, d_tan, tx0, ty0, pmat = scene_rows(card)
+def check_jvp8(dev, tile):
+    """jvp8 against its plain version, and in float64 within chip_smoke's
+    bound (its tangent sums are fused multiply-adds); two launches give
+    the same bits."""
+    _, d, d_tan, tx0, ty0, pmat = scene_rows(dev, tile=tile)
     n = d.shape[0]
+    n0 = bl.LAUNCHES["jvp8"]
     outs, touts = bl.blend_lists_jvp8(d, d_tan, tx0[:n], ty0[:n], pmat, W, H)
+    again = bl.blend_lists_jvp8(d, d_tan, tx0[:n], ty0[:n], pmat, W, H)
+    assert bl.LAUNCHES["jvp8"] == n0 + 2
+    assert torch.equal(outs, again[0]) and torch.equal(touts, again[1])
     p_outs, p_touts = bl.blend_lists_jvp8_plain(d, d_tan, tx0[:n], ty0[:n],
                                                 pmat, W, H)
     assert_outs(outs, p_outs)
     assert_per_column(touts, p_touts, 2e-4)
+    t64 = bl.blend_lists_jvp8_plain(*as_f64(torch, (
+        d, d_tan, tx0[:n], ty0[:n], pmat)), W, H)[1]
+    assert f64_excess(torch, touts, p_touts, t64) <= TF32_SPLIT_FRAC
+    assert float(torch.abs(p_touts).max()) > 0
+
+
+def test_jvp8_on_card(card):
+    check_jvp8(card, 16)
 
 
 @pytest.mark.parametrize("k_fine", [96, 256])
@@ -149,13 +164,11 @@ def test_map_grad_on_card(card, mode, k_fine):
     assert float(psums[:, 0].sum()) > 0 and float(torch.abs(pdd).max()) > 0
 
 
-@pytest.mark.parametrize("k_fine", [96, 256])
-@pytest.mark.parametrize("rgbd", [False, True])
-def test_map_grad_madd_on_card(card, rgbd, k_fine):
+def check_map_grad_madd(card, rgbd, k_fine, tile):
     """The madd variant on raw gathered rows (empty list slots hold
     Gaussian 0's row): against its plain version, and bit for bit against
     the kernel without madd on the same rows pre-masked."""
-    cfg = CFG._replace(k_fine=k_fine)
+    cfg = CFG._replace(k_fine=k_fine, tile=tile)
     g = torch.Generator().manual_seed(0)
     scene = make_synthetic_scene(g, n=3000, spread=2.0, depth_mean=3.0,
                                  scale_min=0.03, scale_max=0.09)
@@ -185,6 +198,12 @@ def test_map_grad_madd_on_card(card, rgbd, k_fine):
     m_dd, m_sums = bl.map_grad_lists(masked, *args, **kw)
     assert torch.equal(dd, m_dd) and torch.equal(sums, m_sums)
     assert float(psums[:, 0].sum()) > 0 and float(torch.abs(pdd).max()) > 0
+
+
+@pytest.mark.parametrize("k_fine", [96, 256])
+@pytest.mark.parametrize("rgbd", [False, True])
+def test_map_grad_madd_on_card(card, rgbd, k_fine):
+    check_map_grad_madd(card, rgbd, k_fine, 16)
 
 
 # ---- the fused steps' live-chunk walk and tensor-core row sums at the
@@ -229,7 +248,8 @@ def edge_rows(dev, k_fine, tile):
     return d, tx0, ty0, pmat, gt, mask, gtd
 
 
-@pytest.mark.parametrize("shape", [(40, 16), (96, 16), (256, 16), (96, 8)])
+@pytest.mark.parametrize("shape", [(40, 16), (96, 16), (256, 16), (96, 8),
+                                   (96, 32), (256, 32)])
 @pytest.mark.parametrize("kind", ["fo_grad", "fo_grad_rgbd", "map_grad",
                                   "map_grad_rgbd"])
 def test_fused_steps_edges_on_card(card, kind, shape):
@@ -275,34 +295,45 @@ def test_fused_steps_edges_on_card(card, kind, shape):
     assert float(torch.abs(want[0]).max()) > 0
 
 
-@pytest.mark.parametrize("kind", ["fo_grad", "map_grad"])
-def test_fused_steps_refuse_wide_tiles_on_card(card, kind):
-    """The fused steps take tiles up to 16 px: P 1024 is refused before
-    any launch."""
-    d, tx0, ty0, pmat, gt, mask, gtd = edge_rows(card, 96, 32)
-    ea = torch.tensor(1.07, device=card)
-    eb = torch.tensor(0.015, device=card)
-    n0 = bl.LAUNCHES[kind]
-    with pytest.raises(ValueError, match="P=1024"):
-        if kind == "fo_grad":
-            bl.fo_grad_lists(d, tx0, ty0, pmat, gt, mask, ea, eb, ODD.width,
-                             ODD.height, use_huber=True, delta=0.01,
-                             eps=1e-8)
-        else:
-            bl.map_grad_lists(d, tx0, ty0, pmat, gt, mask, ea, eb,
-                              ODD.width, ODD.height, True, 0.9, 1e-8)
-    assert bl.LAUNCHES[kind] == n0
+@pytest.mark.parametrize("kind", ["map_grad_madd", "map_grad_madd_rgbd",
+                                  "jvp8", "bwd"])
+def test_wide_tiles_on_card(card, kind):
+    """32 px tiles (P 1024; the tensor-core reverse walks four pixel slices
+    of 256): the madd variant, jvp8 and the blend VJP against their plain
+    versions as at 16 px (the fused steps at 32 px:
+    test_fused_steps_edges_on_card)."""
+    if kind == "jvp8":
+        check_jvp8(card, 32)
+    elif kind == "bwd":
+        check_blend_vjp(card, 96, 32)
+    else:
+        check_map_grad_madd(card, kind.endswith("rgbd"), 96, 32)
+
+
+def check_blend_vjp(dev, k_fine, tile):
+    """The blend VJP against its plain version, and in float64 within
+    chip_smoke's bound for the split TF32 row sums; two launches give the
+    same bits."""
+    d, _, _, tx0, ty0, pmat = scene_rows(dev, k_fine=k_fine, tile=tile)
+    g = torch.Generator(device=dev).manual_seed(2)
+    g_outs = torch.randn((d.shape[0], pmat.shape[1], 8), generator=g,
+                         device=dev)
+    n0 = bl.LAUNCHES["bwd"]
+    dd = bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W, H)
+    assert torch.equal(dd, bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W,
+                                              H))
+    assert bl.LAUNCHES["bwd"] == n0 + 2
+    want = bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H)
+    assert_per_column(dd, want, 1e-4)
+    want64 = bl.blend_lists_vjp_plain(
+        *as_f64(torch, (d, tx0, ty0, pmat, g_outs)), W, H)
+    assert f64_excess(torch, dd, want, want64) <= TF32_SPLIT_FRAC
+    assert float(torch.abs(want).max()) > 0
 
 
 @pytest.mark.parametrize("k_fine", [96, 256])
 def test_blend_vjp_on_card(card, k_fine):
-    d, _, _, tx0, ty0, pmat = scene_rows(card, k_fine=k_fine)
-    g = torch.Generator(device=card).manual_seed(2)
-    g_outs = torch.randn((d.shape[0], pmat.shape[1], 8), generator=g,
-                         device=card)
-    dd = bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W, H)
-    want = bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H)
-    assert_per_column(dd, want, 1e-4)
+    check_blend_vjp(card, k_fine, 16)
 
 
 def test_blend_function_backward_on_card(card):

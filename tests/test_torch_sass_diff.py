@@ -65,3 +65,13 @@ def test_hmma_unsafe(listing, n_hmma, unsafe):
     ins = sd.parse(listing)["_Z6kernelPf"]
     assert sd.count(ins, "HMMA") == n_hmma
     assert sd.hmma_unsafe(ins) == unsafe
+
+
+@pytest.mark.parametrize("fn,base", [
+    ("void bwd_kernel<1>(const float*, float*, int)", "bwd_kernel"),
+    ("void fo_grad_kernel<false, 4>(const float*)", "fo_grad_kernel<false>"),
+    ("void fo_grad_kernel<true>(const float*)", "fo_grad_kernel<true>"),
+    ("void jvp8_kernel(const float*, float*)", "jvp8_kernel"),
+])
+def test_base_name_pairs_instantiations(fn, base):
+    assert sd.base_name(fn) == base
