@@ -23,13 +23,13 @@ JAX. Phases, each of which exits non-zero on failure:
    k_macro 4096 / k_fine 256 shape of configs/synthetic/rgbd.yaml; and
    the mapping step's madd variant on raw rows at both mapping shapes,
    also bit for bit against the step on the same rows pre-masked; the
-   fused first-order and mapping steps (and madd), the blend VJP and
-   jvp8 are launched twice and must give the same bits, the kernels on
-   the tensor-core reverse (the fused steps and the VJP) are held to
-   their plain version in float64 (``f64_excess``), and their registers,
-   shared memory per CTA and resident CTAs per SM are logged and added to
-   their kernel entries; then the list kernels again at 32 px tiles (P
-   1024, entries tagged "@tile32");
+   forward blends, the fused first-order and mapping steps (and madd),
+   the blend VJP and jvp8 are launched twice and must give the same bits,
+   the kernels on the tensor-core reverse (the fused steps and the VJP)
+   are held to their plain version in float64 (``f64_excess``), and their
+   and the forward blends' registers, shared memory per CTA and resident
+   CTAs per SM are logged and added to their kernel entries; then the list
+   kernels again at 32 px tiles (P 1024, entries tagged "@tile32");
 3. tracking path: render the 22 frames of a jittered orbit around a
    100k-Gaussian synthetic scene through the port's ``render``, track a
    20-frame monocular chain with the shipped tracking configuration
@@ -242,12 +242,13 @@ def expf_ops():
 # exact; sums over pixels are taken in another order (warp shuffles, or for
 # the fused steps TF32 products of split float32 operands on the tensor
 # cores, against cuBLAS), hence the tolerances (as in
-# tests/test_torch_blend_lists.py). The fused steps and the macro VJPs are
-# launched twice and must give the same bits.
+# tests/test_torch_blend_lists.py). The list kernels and the macro VJPs
+# are launched twice and must give the same bits.
 REPLACES = "monogs_tpu/render/pallas_lists.py"
 KERNELS = {
     "fwd": (f"{REPLACES}:310 (_fwd_kernel)",
-            "image/opacity atol 2e-5, depth atol 2e-4"),
+            "image/opacity atol 2e-5, depth atol 2e-4; two launches "
+            "bit-identical"),
     "fwd_counts": (f"{REPLACES}:323 (_fwd_counts_kernel)",
                    "as fwd; counts exact"),
     "fo_grad": (f"{REPLACES}:466 (_fo_grad_kernel)",
@@ -388,6 +389,23 @@ def fused_attrs(kf=96, p=256):
     return {k: dict(registers=buf[3 * i], smem_bytes=buf[3 * i + 1],
                     ctas_per_sm=buf[3 * i + 2])
             for i, k in enumerate(FUSED_KERNELS)}
+
+
+def fwd_attrs(kf=96, p=256):
+    """{kind: registers per thread, shared memory per CTA and resident CTAs
+    per SM} of the forward blends (fwd, fwd_counts) at list length kf and
+    P = p, from the library."""
+    import ctypes
+
+    from monogs_tpu_torch import _build
+
+    buf = (ctypes.c_int * 6)()
+    rc = _build.library("blend_lists").blend_fwd_attrs(
+        kf, p, ctypes.addressof(buf))
+    check(rc == 0, f"blend_fwd_attrs failed with CUDA error {rc}")
+    return {k: dict(registers=buf[3 * i], smem_bytes=buf[3 * i + 1],
+                    ctas_per_sm=buf[3 * i + 2])
+            for i, k in enumerate(("fwd", "fwd_counts"))}
 
 
 def smi_line():
@@ -674,6 +692,9 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
     pairs_full = pair_counts(torch, bl, d_full, tx0, ty0, pmat, W, H)
     want = bl.blend_lists_plain(d_full, tx0, ty0, pmat, W, H)
     got = bl.blend_lists(d_full, tx0, ty0, pmat, W, H)
+    check(bool(torch.equal(got, bl.blend_lists(d_full, tx0, ty0, pmat, W,
+                                               H))),
+          "fwd: two launches differ")
     err, ok = outs_err(torch, got, want)
     record("fwd", lambda: bl.blend_lists(d_full, tx0, ty0, pmat, W, H),
            lambda: bl.blend_lists_plain(d_full, tx0, ty0, pmat, W, H),
@@ -681,6 +702,11 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
 
     # 2. forward blend with per-row counts
     got, cnt = bl.blend_lists_counts(d_full, tx0, ty0, pmat, W, H)
+    again = bl.blend_lists_counts(d_full, tx0, ty0, pmat, W, H)
+    check(bool(torch.equal(got, again[0])) and bool(torch.equal(cnt,
+                                                                again[1])),
+          "fwd_counts: two launches differ")
+    del again
     want, want_c = bl.blend_lists_counts_plain(d_full, tx0, ty0, pmat, W, H)
     err, ok = outs_err(torch, got, want)
     ok = ok and bool(torch.equal(cnt, want_c))
@@ -1942,11 +1968,12 @@ def run(scene_seed):
                 log(f"ptxas {name}: {line.strip()}")
     smi = smi_line()
     log(f"built in {build_s:.1f} s on {smi}")
-    attrs = fused_attrs()
-    attrs32 = fused_attrs(p=1024)
+    attrs = {**fused_attrs(), **fwd_attrs()}
+    attrs32 = {**fused_attrs(p=1024), **fwd_attrs(p=1024)}
     for kind, a in attrs.items():
         log(f"{kind}: {a['registers']} registers, {a['smem_bytes']} B of "
-            f"shared memory per CTA (Kf 96), {a['ctas_per_sm']} CTAs per SM; "
+            f"shared memory per CTA (Kf 96), "
+            f"{a['ctas_per_sm']} CTAs per SM; "
             f"at P 1024: {attrs32[kind]}")
 
     dev = torch.device("cuda")

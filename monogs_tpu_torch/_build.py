@@ -95,6 +95,7 @@ _SIGNATURES = {
         "blend_map_grad": [_VP] * 11 + [_I] * 6 + [_F] * 3 + [_VP],
         "blend_bwd": [_VP] * 6 + [_I] * 5 + [_VP],
         "blend_fused_attrs": [_I, _I, _VP],
+        "blend_fwd_attrs": [_I, _I, _VP],
     },
     "blend_macros": {
         "macro_fwd": [_VP] * 5 + [_I] * 8 + [_VP],

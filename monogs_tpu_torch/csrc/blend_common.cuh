@@ -179,14 +179,6 @@ __device__ __forceinline__ Tile<OwnRows> load_tile(const float* d,
                    width, height, np);
 }
 
-__device__ __forceinline__ Tile<OwnRows> load_tile(const float* d,
-                                                   const float* tx0,
-                                                   const float* ty0,
-                                                   const float* pmat, int kf,
-                                                   int width, int height) {
-  return load_tile(d, tx0, ty0, pmat, kf, width, height, (int)blockDim.x);
-}
-
 // Stage rows k0 .. k0 + n - 1 of the tile's row source into dst [n][F].
 template <class Rows>
 __device__ __forceinline__ void stage_rows(float* dst, const Tile<Rows>& c,
@@ -214,14 +206,12 @@ __host__ __device__ constexpr int n_chunks(int kf) {
 // Front-to-back blend of the tile's kf rows into o[5] (r, g, b, depth,
 // acc), with the exact per-pixel early exit (T is non-increasing, so once
 // T (1 - a) < 1e-4 no later row contributes) and a CTA exit once every
-// pixel has exited; pixels beyond the image edge never walk. COUNTS: each
-// row's contributing-pixel count into cnts_t[kf] from a warp ballot and
-// popcount, summed over the warps in shared memory (wcnt [KC][nw]).
+// pixel has exited; pixels beyond the image edge never walk. The walk of
+// the macro-list forward (the list forward has its own, blend_lists.cu).
 // Every thread of the CTA must call it: it stages rows between barriers.
-template <bool COUNTS, class Rows>
+template <class Rows>
 __device__ __forceinline__ void forward_walk(const Tile<Rows>& c, float* rows,
-                                             int* wcnt, int kf, float o[5],
-                                             float* cnts_t) {
+                                             int kf, float o[5]) {
   float T = 1.0f;
 #pragma unroll
   for (int j = 0; j < 5; ++j) o[j] = 0.f;
@@ -233,7 +223,6 @@ __device__ __forceinline__ void forward_walk(const Tile<Rows>& c, float* rows,
     __syncthreads();
     for (int i = 0; i < n; ++i) {
       const float* r = rows + i * F;
-      bool contrib = false;
       if (!done) {
         const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
         if (e.ok) {
@@ -248,27 +237,11 @@ __device__ __forceinline__ void forward_walk(const Tile<Rows>& c, float* rows,
             o[3] += w * r[CZ];
             o[4] += w;
             T = test;
-            contrib = true;
           }
         }
       }
-      if constexpr (COUNTS) {
-        const unsigned b = __ballot_sync(0xffffffffu, contrib);
-        if (c.lane == 0) wcnt[i * c.nw + c.warp] = __popc(b);
-      }
     }
-    const bool all_done = __syncthreads_and(done);
-    if constexpr (COUNTS) {
-      for (int i = c.p; i < n; i += c.P) {
-        int s = 0;
-        for (int w = 0; w < c.nw; ++w) s += wcnt[i * c.nw + w];
-        cnts_t[k0 + i] = (float)s;
-      }
-      if (all_done) {
-        for (int k = k0 + n + c.p; k < kf; k += c.P) cnts_t[k] = 0.f;
-      }
-    }
-    if (all_done) break;
+    if (__syncthreads_and(done)) break;
   }
 }
 

@@ -142,7 +142,7 @@ __global__ void macro_fwd_kernel(const float* __restrict__ data_m,
   const auto c = make_tile(blockIdx.x, ft.x0, ft.y0, pmat,
                            IndexedRows{dm, ridx}, width, height);
   float o[5];
-  forward_walk<false>(c, rows, nullptr, n, o, nullptr);
+  forward_walk(c, rows, n, o);
   store8(outs + ((size_t)blockIdx.x * c.P + c.p) * 8, o);
 }
 

@@ -24,12 +24,24 @@ Kernels (TPU kernel replaced -> bound on the H100 -> design):
   operations: 26 per (row, pixel) pair walked (expf is 10) and 13 more per
   contributing pair, against 64 bytes per row: about 41 operations per
   byte at the frame's shapes, twice the card's ratio of FP32 rate to HBM
-  bandwidth (chip_smoke.py counts the pairs).
-  One CTA per tile, one thread per pixel, rows staged in shared memory,
-  per-pixel early exit once T(1 - a) < 1e-4, CTA exit once all pixels exit.
+  bandwidth (chip_smoke.py counts the pairs); the library is built
+  without fused multiply-adds, so the card issues them at half its FP32
+  peak. One CTA per tile, two adjacent pixels per thread, so a warp holds
+  a compact block of the tile and reads each staged row once for two
+  pixels. The warps walk independently: each copies the tile's rows into
+  its own two buffers by ``cp.async`` (the next 32-row chunk while it
+  walks the current one) and stops once its pixels have terminated. Before
+  walking a chunk a warp culls the rows that no pixel of its bounding box
+  can take: a pair passes the alpha test only if its log-alpha lies in
+  [-5.55, log-opacity + 1e-4], and for a well-conditioned conic the
+  smallest quadratic form over the box bounds that from above, with a
+  margin for rounding. Culling skips only pairs that fail the alpha test
+  in the plain version too, so the outputs are those of a walk over every
+  row, bit for bit.
 - ``blend_lists_counts`` <- ``_fwd_counts_kernel``; as above, plus each
-  row's contributing-pixel count from a warp ballot and popcount, summed
-  over the CTA's warps in shared memory (exact integers in f32).
+  row's contributing-pixel count from a warp ballot and popcount per pixel
+  slot, added by the row's lane into the tile's integer counts in shared
+  memory (exact in any order) and written out as f32.
 - ``fo_grad_lists`` <- ``_fo_grad_kernel``; bound by FP32 operations
   (26 per walked pair and 43 more per contributing one, 64 for RGB-D;
   40-49 per byte; the row sums among them run on the tensor cores). One
@@ -343,6 +355,9 @@ def _check_common(d, tx0, ty0, pmat):
     _check("tx0", tx0, (n_tiles,))
     _check("ty0", ty0, (n_tiles,))
     _check("pmat", pmat, (6, p))
+    if d.data_ptr() % 16:
+        raise ValueError("d: the kernels copy rows 16 bytes at a time, so its "
+                         "data must start on a 16-byte boundary")
     return n_tiles, kf, p
 
 

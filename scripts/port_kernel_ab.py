@@ -12,9 +12,9 @@ flag so that its alpha and transmittance thresholds round as the plain
 PyTorch version's do). Every build must have the same C interface, except
 that a ``blend_map_grad`` without the ``madd`` argument (sources before
 the fused mapping step's madd variant) is called through an adapter, and
-the madd variant is then left out of the turns. ``blend_fused_attrs`` (a
-report of the fused steps' registers and shared memory, which the turns do
-not call) may be missing from the other builds.
+the madd variant is then left out of the turns. The attribute reports
+(``blend_fused_attrs``, ``blend_fwd_attrs``: registers and shared memory,
+which the turns do not call) may be missing from the other builds.
 
 It prints each build's registers per kernel (``ptxas -v``), then whether
 the forward blends' and jvp8's outputs at the tracking shapes have the
@@ -75,49 +75,58 @@ class _NoMaddInterface:
 
 
 def load(path: Path):
-    """The library at ``path`` with blend_lists' C interface, but for
-    ``blend_fused_attrs``, which the turns do not call and older builds
-    lack."""
+    """The library at ``path`` with blend_lists' C interface, but for the
+    attribute reports (``blend_*_attrs``), which the turns do not call and
+    older builds lack."""
     from monogs_tpu_torch import _build
 
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in _build._SIGNATURES["blend_lists"].items():
-        if fn != "blend_fused_attrs":
+        if not fn.endswith("_attrs"):
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
-def build(name: str, src: Path, flags: list[str]):
-    """Build ``src`` with ``flags`` (and ``-Xptxas -v``) into this
-    checkout's build directory as build ``name`` (two copies of one source
-    are two libraries); returns the library loaded with blend_lists' C
-    interface and {kernel: registers}."""
+def build(srcs: dict[str, tuple[Path, list[str]]]):
+    """Build each source of ``srcs`` ({name: (source, flags)}) with its
+    flags (and ``-Xptxas -v``) into this checkout's build directory as
+    build ``name`` (two copies of one source are two libraries), one nvcc
+    each, started together; returns {name: (the library loaded with
+    blend_lists' C interface, {kernel: registers})}."""
     from monogs_tpu_torch import _build
 
-    h = hashlib.sha256(src.read_bytes())
-    for header in sorted(src.parent.glob("*.cuh")):
-        h.update(header.name.encode() + header.read_bytes())
-    h.update(" ".join(flags).encode())
-    out = (_build.BUILD_DIR
-           / f"libblend_lists_ab_{name}_{h.hexdigest()[:12]}.so")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    r = subprocess.run([_build.nvcc_path(), *flags, "-Xptxas", "-v", "-o",
-                        str(out), str(src)], capture_output=True, text=True)
-    if r.returncode != 0:
-        sys.exit(f"nvcc failed for {src}:\n{r.stdout}{r.stderr}")
-    regs, fn = {}, None
-    for line in (r.stdout + r.stderr).splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            fn = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and fn is not None:
-            regs[fn] = int(m.group(1))
-    lib = load(out)
-    if "madd" not in src.read_text():
-        lib = _NoMaddInterface(lib)
-    return lib, regs
+    jobs = {}
+    for name, (src, flags) in srcs.items():
+        h = hashlib.sha256(src.read_bytes())
+        for header in sorted(src.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(flags).encode())
+        out = (_build.BUILD_DIR
+               / f"libblend_lists_ab_{name}_{h.hexdigest()[:12]}.so")
+        jobs[name] = (subprocess.Popen(
+            [_build.nvcc_path(), *flags, "-Xptxas", "-v", "-o", str(out),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), out, src)
+    built = {}
+    for name, (proc, out, src) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            sys.exit(f"nvcc failed for {src}:\n{log}")
+        regs, fn = {}, None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and fn is not None:
+                regs[fn] = int(m.group(1))
+        lib = load(out)
+        if "madd" not in src.read_text():
+            lib = _NoMaddInterface(lib)
+        built[name] = (lib, regs)
+    return built
 
 
 def same_bits(libs, first, rows, intr):
@@ -173,8 +182,8 @@ def main():
     others = list(srcs)
     srcs["this"] = (_build.SOURCES["blend_lists"], flags)
     libs = {}
-    for name, (src, fl) in srcs.items():
-        libs[name], regs = build(name, src, fl)
+    for name, (lib, regs) in build(srcs).items():
+        libs[name] = lib
         print(json.dumps({"build": name, "registers": regs}), flush=True)
     with_madd = not any(isinstance(lib, _NoMaddInterface)
                         for lib in libs.values())

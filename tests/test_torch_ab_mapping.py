@@ -57,6 +57,7 @@ from tests.test_torch_mapping import (
     noisy, replay_map_draws, tiled_truth, world,
 )
 from tests.test_torch_ops import both_gauss, npy, small_tau, surface_scene, t
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 N_ITERS = 3
 _jmap_grad_knob = jax.jit(jr.render_map_grad, static_argnums=(2, 3, 11, 12),

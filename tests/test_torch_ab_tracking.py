@@ -47,6 +47,7 @@ from monogs_tpu_torch.slam import tracking as ttrack
 from monogs_tpu_torch.slam.frame import make_frame_data as tframe
 from tests.test_torch_mapping import JC, JI, TC, TI, W, H, world
 from tests.test_torch_ops import npy, t
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 BASE = dict(fo_max_iter=4, so_max_iter=3, stack_dim=4, sketch_dim=32,
             lr_trans=0.002, lr_rot=0.006)

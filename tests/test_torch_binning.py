@@ -23,6 +23,7 @@ from monogs_tpu_torch.render import renderer as tr
 from monogs_tpu_torch.render import tiling as ttiling
 from monogs_tpu_torch.render.primitives import preprocess as tpre
 from tests.test_torch_ops import blob_scene, both_gauss, npy, small_tau, t
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 # 48 px is not a multiple of the 32 px macro: the bottom macro row is partial
 INTR = dict(fx=60.0, fy=60.0, cx=31.5, cy=23.5, width=64, height=48)

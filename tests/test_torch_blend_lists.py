@@ -43,6 +43,7 @@ from monogs_tpu_torch.render import blend_lists as tbl
 from monogs_tpu_torch.render import renderer as tr
 from chip_smoke import TF32_SPLIT_FRAC, f64_excess
 from tests.test_torch_ops import both_gauss, npy, small_tau, surface_scene, t
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 # 48 px is not a multiple of the 32 px macro: the bottom tile row lies
 # below the image and pix_ok must mask it
@@ -127,6 +128,89 @@ def test_blend_and_counts_parity(k_fine):
 
 
 FO_ARGS = dict(use_huber=True, delta=0.01, eps=1e-8)
+
+
+S_LO = -5.55   # csrc/blend_lists.cu
+
+
+def warp_boxes(tx0, ty0, pmat, npx):
+    """[4, T, W]: (x0, x1, y0, y1) of the pixels of each warp that walk
+    (inside the image; empty if none) when thread q holds pixels npx q + j
+    (the forward kernel's layout)."""
+    p = pmat.shape[1]
+    per = 32 * npx
+    n_w = -(-p // per)
+    walk = ((tx0[:, None] + pmat[3] <= W - 1)
+            & (ty0[:, None] + pmat[4] <= H - 1))                 # [T, P]
+    nan = torch.tensor(float("nan"))
+    x = torch.full((tx0.shape[0], n_w * per), float("nan"))
+    y = torch.full((tx0.shape[0], n_w * per), float("nan"))
+    x[:, :p] = torch.where(walk, pmat[3], nan)
+    y[:, :p] = torch.where(walk, pmat[4], nan)
+    x, y = x.reshape(-1, n_w, per), y.reshape(-1, n_w, per)
+    inf = float("inf")
+    return torch.stack([x.nan_to_num(inf).amin(2),
+                        x.nan_to_num(-inf).amax(2),
+                        y.nan_to_num(inf).amin(2),
+                        y.nan_to_num(-inf).amax(2)])
+
+
+def row_reaches(d, tx0, ty0, box):
+    """[T, K, W] emulation of the forward kernel's row_reaches in float32
+    (the same operations; the library is built without contraction)."""
+    lim = d[..., tbl._LOGO] + 1e-4
+    a, b, c = d[..., tbl._CA], d[..., tbl._CB], d[..., tbl._CC]
+    ul = (d[..., tbl._U] - tx0[:, None])[..., None]
+    vl = (d[..., tbl._V] - ty0[:, None])[..., None]
+    a, b, c, lim = (x[..., None] for x in (a, b, c, lim))
+    tr_ = a + c
+    pd = (a > 0) & (c > 0) & (a * c - b * b > 1e-3 * tr_ * tr_)
+    x0, x1, y0, y1 = box[:, :, None, :]
+    dx0, dx1, dy0, dy1 = ul - x1, ul - x0, vl - y1, vl - y0
+    inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
+
+    def q(dx, dy):
+        return a * dx * dx + 2.0 * b * dx * dy + c * dy * dy
+
+    def clamp(v, lo, hi):
+        return torch.fmin(torch.fmax(v, lo), hi)
+
+    ra, rc = -b * (1.0 / a), -b * (1.0 / c)
+    qmin = torch.fmin(
+        torch.fmin(q(dx0, clamp(rc * dx0, dy0, dy1)),
+                   q(dx1, clamp(rc * dx1, dy0, dy1))),
+        torch.fmin(q(clamp(ra * dy0, dx0, dx1), dy0),
+                   q(clamp(ra * dy1, dx0, dx1), dy1)))
+    far = ~(lim - 0.495 * qmin < S_LO - 0.01)
+    return (lim >= S_LO) & (~pd | inside | far)
+
+
+@pytest.mark.parametrize("npx", [1, 2, 4])
+@pytest.mark.parametrize("k_fine", [96, 256])
+def test_forward_cull_is_exact(k_fine, npx):
+    """A row that the forward kernel culls for a warp passes the alpha
+    test at no pixel of that warp (so culling keeps every bit of the
+    outputs and counts), and the culling is not idle on this scene."""
+    d, _, tx0, ty0, pmat = rows(k_fine)
+    # rows the kernel must walk whatever their geometry: an elongated
+    # conic, a non-positive one and an invalid row
+    d = d.clone()
+    d[0, 1, tbl._CA], d[0, 1, tbl._CB], d[0, 1, tbl._CC] = 1.0, 0.9995, 1.0
+    d[0, 2, tbl._CA] = -1.0
+    d[0, 3, tbl._LOGO] = -1e30
+    reach = row_reaches(d, tx0, ty0, warp_boxes(tx0, ty0, pmat, npx))
+    f = tbl._forward_plain(d, tx0, ty0, pmat, W, H)
+    p = pmat.shape[1]
+    per = 32 * npx
+    n_w = reach.shape[-1]
+    ok = torch.zeros(f["ok"].shape[:2] + (n_w * per,), dtype=torch.bool)
+    ok[..., :p] = f["ok"]
+    used = ok.reshape(*ok.shape[:2], n_w, per).any(-1)
+    assert not bool((used & ~reach).any())
+    assert bool(reach[0, 1].all()) and bool(reach[0, 2].all())
+    assert not bool(reach[0, 3].any())
+    culled = float((~reach).float().mean())
+    assert culled > 0.1, culled
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,6 +24,7 @@ from monogs_tpu_torch.slam import tracking as ttrack
 from tests.test_torch_ops import t
 from tests.test_torch_render import frames, world
 from tests.test_torch_tracking import TRACK, replay_draws
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 # per-frame motion: about 27 mm and 5 mrad
 STEP = np.float32([0.02, -0.015, 0.01, 0.004, -0.003, 0.002])

@@ -78,17 +78,36 @@ def assert_per_column(got, want, frac, rtol=1e-3):
     assert not bool(bad.any()), int(bad.sum())
 
 
-def test_blend_and_counts_on_card(card):
-    d, _, _, tx0, ty0, pmat = scene_rows(card)
+@pytest.mark.parametrize("shape", [(96, 16), (40, 16), (256, 16), (96, 8),
+                                   (96, 32), (40, 32)])
+def test_blend_and_counts_on_card(card, shape):
+    """fwd and fwd_counts against their plain versions on edge_rows' frame
+    with one more tile wholly beyond the image edge, counts exactly; two
+    launches give the same bits, and the two kernels the same outputs; the
+    invalid tile and the tile beyond the edge blend nothing, and the tile
+    whose pixels all terminate by row 2 (in the first chunk) counts no row
+    after it."""
+    k_fine, tile = shape
+    d, tx0, ty0, pmat = edge_rows(card, k_fine, tile)[:4]
+    d = torch.cat([d, d[2:3]]).contiguous()
+    tx0 = torch.cat([tx0, tx0.new_tensor([float(ODD.width)])])
+    ty0 = torch.cat([ty0, ty0[2:3]])
+    args = (d, tx0, ty0, pmat, ODD.width, ODD.height)
     n0 = dict(bl.LAUNCHES)
-    assert_outs(bl.blend_lists(d, tx0, ty0, pmat, W, H),
-                bl.blend_lists_plain(d, tx0, ty0, pmat, W, H))
-    outs, cnts = bl.blend_lists_counts(d, tx0, ty0, pmat, W, H)
-    want, want_c = bl.blend_lists_counts_plain(d, tx0, ty0, pmat, W, H)
+    outs, again = bl.blend_lists(*args), bl.blend_lists(*args)
+    (oc, cnts), (oc2, cnts2) = (bl.blend_lists_counts(*args),
+                                bl.blend_lists_counts(*args))
+    assert bl.LAUNCHES["fwd"] == n0["fwd"] + 2
+    assert bl.LAUNCHES["fwd_counts"] == n0["fwd_counts"] + 2
+    assert torch.equal(outs, again) and torch.equal(oc, oc2)
+    assert torch.equal(cnts, cnts2) and torch.equal(oc, outs)
+    want, want_c = bl.blend_lists_counts_plain(*args)
     assert_outs(outs, want)
     assert torch.equal(cnts, want_c) and float(cnts.sum()) > 0
-    assert bl.LAUNCHES["fwd"] == n0["fwd"] + 1
-    assert bl.LAUNCHES["fwd_counts"] == n0["fwd_counts"] + 1
+    for tl in (0, -1):
+        assert float(outs[tl].abs().max()) == 0.0
+        assert float(cnts[tl].abs().max()) == 0.0
+    assert float(cnts[1, 0]) > 0 and float(cnts[1, 3:].abs().max()) == 0
 
 
 @pytest.mark.parametrize("rgbd", [False, True])
@@ -395,6 +414,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
                        tx0, ty0, pmat, W, H)
     with pytest.raises(ValueError, match="float32 CUDA"):
         bl.blend_lists(d, tx0.cpu(), ty0, pmat, W, H)
+    shifted = torch.empty(d.numel() + 1, device=card)[1:].view(d.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        bl.blend_lists(shifted, tx0, ty0, pmat, W, H)
 
 
 # ------------------------------------------------------ macro-list kernels

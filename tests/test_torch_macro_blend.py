@@ -45,6 +45,7 @@ from monogs_tpu_torch.render import blend_macros as tbm
 from monogs_tpu_torch.render import renderer as tr
 from tests.test_torch_blend_lists import assert_per_column
 from tests.test_torch_ops import blob_scene, both_gauss, npy, small_tau, t
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 # the smallest scene of tests/test_pallas.py
 INTR = dict(fx=60.0, fy=60.0, cx=31.5, cy=23.5, width=64, height=48)

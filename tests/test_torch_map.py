@@ -41,6 +41,7 @@ from monogs_tpu_torch.ops import losses as tlosses
 from monogs_tpu_torch.render import Intrinsics as TIntr
 from monogs_tpu_torch.render.tiling import compact_indices as tcompact
 from tests.test_torch_ops import npy, small_tau, surface_scene, t
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 LEAVES = ("xyz", "sh", "log_scale", "quat", "opa_logit")
 SIDE = ("adam_t", "active", "kf_id", "n_obs", "max_radii2d", "grad_accum",

@@ -51,6 +51,7 @@ from monogs_tpu_torch.slam import mapping as tmap
 from tests.test_torch_blend_lists import assert_per_column, j, rows
 from tests.test_torch_map import LEAVES, port_map
 from tests.test_torch_ops import npy, small_tau, surface_scene, t
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 INTR = dict(fx=60.0, fy=60.0, cx=31.5, cy=23.5, width=64, height=48)
 CFG = dict(tile=16, macro_tiles=2, k_macro=512, k_fine=128,

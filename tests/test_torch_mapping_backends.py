@@ -58,6 +58,7 @@ from monogs_tpu_torch.slam import mapping as tmap
 from tests.test_torch_map import LEAVES, port_map
 from tests.test_torch_mapping import replay_map_draws
 from tests.test_torch_ops import npy, small_tau, surface_scene, t
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 INTR = dict(fx=60.0, fy=60.0, cx=31.5, cy=23.5, width=64, height=48)
 W, H = INTR["width"], INTR["height"]

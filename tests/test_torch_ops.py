@@ -29,6 +29,7 @@ from monogs_tpu_torch.ops import losses as tlosses
 from monogs_tpu_torch.ops import se3 as tse3
 from monogs_tpu_torch.ops import sh as tsh
 from monogs_tpu_torch.ops import sketch as tsketch
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 

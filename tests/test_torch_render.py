@@ -35,6 +35,7 @@ from monogs_tpu_torch.slam import tracking as ttrack
 from monogs_tpu_torch.slam.frame import make_frame_data as tframe
 from tests.test_torch_blend_lists import assert_per_column
 from tests.test_torch_ops import both_gauss, npy, small_tau, surface_scene, t
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 # 96 px is not a multiple of the 64 px macro: the bottom macro row is
 # partial (render must crop it, tile_images must zero-pad it)

@@ -14,6 +14,8 @@ import types
 import numpy as np
 import pytest
 
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def pk():

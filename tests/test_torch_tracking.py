@@ -25,6 +25,7 @@ from monogs_tpu_torch.ops import se3 as tse3
 from monogs_tpu_torch.slam import tracking as ttrack
 from tests.test_torch_ops import npy, t
 from tests.test_torch_render import frames, world
+from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 TRACK = dict(fo_max_iter=12, so_max_iter=4, stack_dim=8, sketch_dim=32,
              bin_margin=16.0, fo_tile_frac=0.25, so_tile_frac=0.25,
