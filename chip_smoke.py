@@ -19,17 +19,18 @@ JAX. Phases, each of which exits non-zero on failure:
    the same inputs; time both with CUDA events; then the four macro-list
    kernels of the "pallas" and "pallas_compact" render backends on the
    scene's macro lists at frame 1's pose with the L1 cotangent of frame 2,
-   at the bench shape (k_macro 1024, k_fine 96) and at the 320x240 /
-   k_macro 4096 / k_fine 256 shape of configs/synthetic/rgbd.yaml; and
-   the mapping step's madd variant on raw rows at both mapping shapes,
-   also bit for bit against the step on the same rows pre-masked; the
-   forward blends, the fused first-order and mapping steps (and madd),
-   the blend VJP and jvp8 are launched twice and must give the same bits,
-   the kernels on the tensor-core reverse (the fused steps and the VJP)
-   are held to their plain version in float64 (``f64_excess``), and their
-   and the forward blends' registers, shared memory per CTA and resident
-   CTAs per SM are logged and added to their kernel entries; then the list
-   kernels again at 32 px tiles (P 1024, entries tagged "@tile32");
+   at the bench shape (k_macro 1024, k_fine 96), at the 320x240 /
+   k_macro 4096 / k_fine 256 shape of configs/synthetic/rgbd.yaml and at
+   the bench shape in 32 px tiles ("@tile32"); and the mapping step's
+   madd variant on raw rows at both mapping shapes, also bit for bit
+   against the step on the same rows pre-masked; every kernel is
+   launched twice and must give the same bits, the kernels on the
+   tensor-core reverse (the fused steps and the list and macro VJPs) are
+   held to their plain version in float64 (``f64_excess``), and their,
+   the forward blends' and the macro forward's registers, shared memory
+   per CTA and resident CTAs per SM are logged and added to their kernel
+   entries; then the list kernels again at 32 px tiles (P 1024, entries
+   tagged "@tile32");
 3. tracking path: render the 22 frames of a jittered orbit around a
    100k-Gaussian synthetic scene through the port's ``render``, track a
    20-frame monocular chain with the shipped tracking configuration
@@ -283,15 +284,17 @@ KERNELS = {
 
 KERNELS.update({
     "macro_fwd": ("monogs_tpu/render/pallas_blend.py:197 (_fwd_kernel)",
-                  "image/opacity atol 2e-5, depth atol 2e-4"),
+                  "image/opacity atol 2e-5, depth atol 2e-4; two launches "
+                  "bit-identical"),
     "macro_bwd": ("monogs_tpu/render/pallas_blend.py:259 (_bwd_kernel)",
                   "ddata rtol 1e-3 + 1e-4 x column max; two launches "
-                  "bit-identical"),
+                  "bit-identical; f64_excess <= 2^-14"),
     "compact_fwd": ("monogs_tpu/render/pallas_compact.py:244 (_fwd_kernel)",
-                    "image/opacity atol 2e-5, depth atol 2e-4"),
+                    "image/opacity atol 2e-5, depth atol 2e-4; two launches "
+                    "bit-identical"),
     "compact_bwd": ("monogs_tpu/render/pallas_compact.py:262 (_bwd_kernel)",
                     "ddata rtol 1e-3 + 1e-4 x column max; two launches "
-                    "bit-identical"),
+                    "bit-identical; f64_excess <= 2^-14"),
 })
 
 TRACK_KERNELS = ("fwd", "fwd_counts", "fo_grad", "fo_grad_rgbd", "jvp8")
@@ -406,6 +409,25 @@ def fwd_attrs(kf=96, p=256):
     return {k: dict(registers=buf[3 * i], smem_bytes=buf[3 * i + 1],
                     ctas_per_sm=buf[3 * i + 2])
             for i, k in enumerate(("fwd", "fwd_counts"))}
+
+
+def macro_attrs(p=256):
+    """{kind: registers per thread, shared memory per CTA and resident CTAs
+    per SM} of the macro-list kernels at P = p (the same for every list
+    length), from the library."""
+    import ctypes
+
+    from monogs_tpu_torch import _build
+
+    buf = (ctypes.c_int * 6)()
+    rc = _build.library("blend_macros").macro_attrs(p, ctypes.addressof(buf))
+    check(rc == 0, f"macro_attrs failed with CUDA error {rc}")
+    out = {}
+    for i, step in enumerate(("fwd", "bwd")):
+        a = dict(registers=buf[3 * i], smem_bytes=buf[3 * i + 1],
+                 ctas_per_sm=buf[3 * i + 2])
+        out[f"macro_{step}"] = out[f"compact_{step}"] = a
+    return out
 
 
 def smi_line():
@@ -1009,38 +1031,56 @@ def macro_pairs(torch, args, tile, fs, W, H, k_fine=None):
     return dict(tot, box_tests=ft * valid, ft_adds=entered - rows_entered)
 
 
-def macro_kernel_phase(torch, intr, cfg, scene, pose, pose2, frame, e_exp):
-    """The four macro-list kernels against their plain versions on the
-    scene's macro lists at ``pose``, the VJPs with the L1 cotangent of the
-    view at ``pose2`` (``frame`` at the bench shape, a render at the
-    320x240 one); each VJP is launched twice and must give bit-identical
-    row cotangents. At the bench shape (640x480, k_macro 1024, k_fine 96)
-    and at configs/synthetic/rgbd.yaml's (320x240, k_macro 4096, k_fine
-    256)."""
+def macro_cases(torch, intr, cfg, scene, pose, pose2, frame, tile32=False):
+    """The macro-list kernels' inputs at the bench shape (640x480, k_macro
+    1024, k_fine 96) and at configs/synthetic/rgbd.yaml's (320x240,
+    k_macro 4096, k_fine 256), and with ``tile32`` at the bench shape in 32
+    px tiles (P 1024, 128 px macros): [(tag, (data_m, xy0, counts, pmat),
+    (tile, ft_side, W, H), k_fine, gt)], the lists binned at ``pose`` and
+    ``gt`` [Tm, ft, P, 3] the view at ``pose2`` (``frame`` at the bench
+    shape, a render at the 320x240 one)."""
     from monogs_tpu_torch.render import Intrinsics
-    from monogs_tpu_torch.render import blend_macros as bm
     from monogs_tpu_torch.render import render
     from monogs_tpu_torch.render import renderer as rr
 
-    entries = {}
     intr_s = Intrinsics(fx=320.0, fy=320.0, cx=159.5, cy=119.5, width=320,
                         height=240)
-    cases = (("", intr, cfg, frame.gt_image),
-             ("@320x240_km4096_kf256", intr_s,
-              cfg._replace(k_macro=4096, k_fine=256), None))
-    for tag, intr_c, cfg_c, gt_img in cases:
-        W, H = intr_c.width, intr_c.height
-        tile, fs, kf = cfg_c.tile, cfg_c.macro_tiles, cfg_c.k_fine
+    out = []
+    for tag, intr_c, cfg_c, gt_img in (
+            ("", intr, cfg, frame.gt_image),
+            ("@320x240_km4096_kf256", intr_s,
+             cfg._replace(k_macro=4096, k_fine=256), None),
+            ("@tile32", intr, cfg._replace(tile=32), frame.gt_image))[
+                :3 if tile32 else 2]:
         args = macro_lists(torch, scene, pose, intr_c, cfg_c)
         if gt_img is None:
             with torch.no_grad():
                 gt_img = render(scene, pose2, intr_c, cfg_c._replace(
                     with_n_touched=False)).image
+        tile, fs = cfg_c.tile, cfg_c.macro_tiles
         gt = rr.tile_images(gt_img, intr_c, cfg_c).reshape(
             args[0].shape[0], fs * fs, tile * tile, 3)
+        out.append((tag, args, (tile, fs, intr_c.width, intr_c.height),
+                    cfg_c.k_fine, gt))
+    return out
+
+
+def macro_kernel_phase(torch, intr, cfg, scene, pose, pose2, frame, e_exp,
+                       tile32=True, strict=True, plain_reps=5):
+    """The four macro-list kernels against their plain versions on the
+    scene's macro lists at ``pose``, the VJPs with the L1 cotangent of the
+    view at ``pose2``, at macro_cases' shapes (``tile32``: also in 32 px
+    tiles); each kernel is launched twice and must give the same bits, and
+    the VJPs are held to their plain version in float64 (``f64_excess``).
+    ``strict`` as in kernel_phase."""
+    from monogs_tpu_torch.render import blend_macros as bm
+
+    entries = {}
+    for tag, args, geo, kf, gt in macro_cases(torch, intr, cfg, scene, pose,
+                                              pose2, frame, tile32):
+        tile, fs, W, H = geo
         log(f"macro lists{tag}: data_m {tuple(args[0].shape)}, rows "
             f"{int(args[2].sum())}")
-        geo = (tile, fs, W, H)
         for kind, k_fine, fwd_p, vjp_p, extra in (
                 ("macro", None, bm.blend_macros_plain,
                  bm.blend_macros_vjp_plain, ()),
@@ -1055,12 +1095,14 @@ def macro_kernel_phase(torch, intr, cfg, scene, pose, pose2, frame, e_exp):
 
             pairs = macro_pairs(torch, args, tile, fs, W, H, k_fine)
             outs = fwd()
+            check(bool(torch.equal(outs, fwd())),
+                  f"{kind}_fwd{tag}: two launches differ")
             err, ok = outs_err(torch, outs, fwd_p(*args, *geo, *extra))
             check(float(outs[..., 4].max()) > 0, f"{kind}_fwd{tag}: empty")
             record_kernel(torch, entries, f"{kind}_fwd{tag}", fwd,
                           lambda: fwd_p(*args, *geo, *extra), err, ok,
                           nbytes(*args), nbytes(outs), pairs, e_exp,
-                          plain_reps=5)
+                          strict, plain_reps)
             g_outs = l1_cotangent(torch, outs, gt, W, H)
             dd, dd2 = vjp(g_outs), vjp(g_outs)
             want = vjp_p(*args, g_outs, *geo, *extra)
@@ -1069,11 +1111,15 @@ def macro_kernel_phase(torch, intr, cfg, scene, pose, pose2, frame, e_exp):
                   f"{kind}_bwd{tag}: two launches differ")
             check(float(torch.abs(want).max()) > 0,
                   f"{kind}_bwd{tag}: zero row cotangents")
+            ex = f64_excess(torch, dd, want, vjp_p(
+                *as_f64(torch, (*args, g_outs)), *geo, *extra))
             record_kernel(torch, entries, f"{kind}_bwd{tag}",
                           lambda: vjp(g_outs),
                           lambda: vjp_p(*args, g_outs, *geo, *extra), err,
-                          ok, nbytes(*args, g_outs), nbytes(dd), pairs,
-                          e_exp, plain_reps=5)
+                          ok and ex <= TF32_SPLIT_FRAC,
+                          nbytes(*args, g_outs), nbytes(dd), pairs, e_exp,
+                          strict, plain_reps)
+            entries[f"{kind}_bwd{tag}"]["f64_excess"] = ex
             del outs, g_outs, dd, dd2, want
     return entries
 
@@ -1968,11 +2014,12 @@ def run(scene_seed):
                 log(f"ptxas {name}: {line.strip()}")
     smi = smi_line()
     log(f"built in {build_s:.1f} s on {smi}")
-    attrs = {**fused_attrs(), **fwd_attrs()}
-    attrs32 = {**fused_attrs(p=1024), **fwd_attrs(p=1024)}
+    attrs = {**fused_attrs(), **fwd_attrs(), **macro_attrs()}
+    attrs32 = {**fused_attrs(p=1024), **fwd_attrs(p=1024),
+               **macro_attrs(p=1024)}
     for kind, a in attrs.items():
         log(f"{kind}: {a['registers']} registers, {a['smem_bytes']} B of "
-            f"shared memory per CTA (Kf 96), "
+            f"shared memory per CTA (list kernels at Kf 96), "
             f"{a['ctas_per_sm']} CTAs per SM; "
             f"at P 1024: {attrs32[kind]}")
 

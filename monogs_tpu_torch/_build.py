@@ -98,10 +98,13 @@ _SIGNATURES = {
         "blend_fwd_attrs": [_I, _I, _VP],
     },
     "blend_macros": {
-        "macro_fwd": [_VP] * 5 + [_I] * 8 + [_VP],
+        "macro_fwd": [_VP] * 6 + [_I] * 8 + [_VP],
         "macro_bwd": [_VP] * 7 + [_I] * 8 + [_VP],
+        "macro_scratch_bytes": [_I] * 6,
+        "macro_attrs": [_I, _VP],
     },
 }
+_RESTYPES = {"macro_scratch_bytes": ctypes.c_size_t}
 
 
 def load(path: Path, name: str) -> ctypes.CDLL:
@@ -109,7 +112,7 @@ def load(path: Path, name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
+        getattr(lib, fn).restype = _RESTYPES.get(fn, ctypes.c_int)
     return lib
 
 

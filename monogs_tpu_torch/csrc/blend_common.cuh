@@ -1,13 +1,14 @@
 // Device machinery shared by the blend kernels (blend_lists.cu,
-// blend_macros.cu): row evaluation, row staging, the forward walk with its
-// exact early exit, the checkpointed forward and the reverse blend.
+// blend_macros.cu): row evaluation, row staging, the tile sums and row
+// cotangents, and the tensor-core reverse.
 //
-// A CTA blends one 16x16 tile with one thread per pixel. Its rows come from
-// a row source, a compile-time choice so that the list kernels carry no
-// index: the tile's own depth-ordered list (OwnRows, row k is dt[k]), or
-// rows picked from a macro list by an index list in shared memory
-// (IndexedRows, row k is dt[ridx[k]]). Row cotangents go to the same row of
-// the output (dd_t[k], or dd_t[ridx[k]]).
+// A CTA blends one tile. Its rows come from a row source, a compile-time
+// choice so that the list kernels carry no index: the tile's own
+// depth-ordered list (OwnRows, row k is dt[k]), the same with an additive
+// log-opacity column (MaddRows), or rows picked from a macro list by the
+// tile's row index (IndexedRows, row k is dt[idx(k)]). The cotangent of row
+// k goes to row out(k) of the output: row k in each case (a macro-list
+// tile writes its rows' cotangents compactly, blend_macros.cu).
 //
 // Packed row layout (renderer._F columns): u, v, conic a/b/c, opacity, rgb,
 // z, radius, log-opacity, pad. Invalid rows carry LOGO = -1e30 and never
@@ -90,37 +91,39 @@ __device__ __forceinline__ void store8(float* out, const float* v5) {
   o[1] = make_float4(v5[4], 0.f, 0.f, 0.f);
 }
 
-// kStopEarly: the checkpointed forward stops staging chunks once every pixel
-// of the CTA has terminated. That pays on a macro list (up to Km rows); on a
-// tile list of a few chunks the per-chunk barrier costs more than it saves
-// (the RGB-D mapping step at Kf 256 ran 12 % slower with it on an H100,
-// scripts/port_kernel_ab.py).
 struct OwnRows {
   static constexpr bool kContiguous = true;
-  static constexpr bool kStopEarly = false;
   static constexpr bool kMadd = false;
   const float* dt;
   __device__ __forceinline__ int operator()(int k) const { return k; }
+  __device__ __forceinline__ int out(int k) const { return k; }
 };
 
 // A raw row -1e30 + LOGO rounds to -1e30 in float32 (LOGO >= log(1e-12)),
 // so a masked row stages bit for bit as the caller's pre-masked copy would.
 struct MaddRows {
   static constexpr bool kContiguous = true;
-  static constexpr bool kStopEarly = false;
   static constexpr bool kMadd = true;
   const float* dt;
   const float* madd_t;  // [kf]
   __device__ __forceinline__ int operator()(int k) const { return k; }
+  __device__ __forceinline__ int out(int k) const { return k; }
 };
 
+// Row k is dt[idx(k)]: the index's first ns entries in shared memory, the
+// rest in global scratch (written by this CTA before a barrier, so read
+// through L1, never the read-only path); row k's cotangent goes to slot k.
 struct IndexedRows {
   static constexpr bool kContiguous = false;
-  static constexpr bool kStopEarly = true;
   static constexpr bool kMadd = false;
   const float* dt;
-  const int* ridx;  // shared memory
-  __device__ __forceinline__ int operator()(int k) const { return ridx[k]; }
+  int* idx_s;  // [ns], shared memory
+  int* idx_g;  // [cap - ns], global
+  int ns;
+  __device__ __forceinline__ int operator()(int k) const {
+    return k < ns ? idx_s[k] : idx_g[k - ns];
+  }
+  __device__ __forceinline__ int out(int k) const { return k; }
 };
 
 template <class Rows>
@@ -159,14 +162,6 @@ __device__ __forceinline__ Tile<Rows> make_tile(int t, float x0, float y0,
   return c;
 }
 
-// One thread per pixel of the tile.
-template <class Rows>
-__device__ __forceinline__ Tile<Rows> make_tile(int t, float x0, float y0,
-                                                const float* pmat, Rows src,
-                                                int width, int height) {
-  return make_tile(t, x0, y0, pmat, src, width, height, (int)blockDim.x);
-}
-
 // The tile of a list kernel: CTA t blends its own rows d[t] [kf][F].
 __device__ __forceinline__ Tile<OwnRows> load_tile(const float* d,
                                                    const float* tx0,
@@ -192,123 +187,15 @@ __device__ __forceinline__ void stage_rows(float* dst, const Tile<Rows>& c,
     }
   } else if constexpr (Rows::kContiguous) {
     stage_span(dst, c.src.dt + (size_t)k0 * F, n * F);
-  } else {
-    for (int i = threadIdx.x; i < n * F; i += blockDim.x)
-      dst[i] = c.src.dt[(size_t)c.src(k0 + i / F) * F + i % F];
+  } else {  // gathered rows, 16 bytes a thread
+    for (int i = threadIdx.x; i < n * 4; i += blockDim.x)
+      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(
+          c.src.dt + (size_t)c.src(k0 + i / 4) * F)[i % 4];
   }
 }
 
 __host__ __device__ constexpr int n_chunks(int kf) {
   return (kf + KC - 1) / KC;
-}
-
-// ---------------------------------------------------------- forward walk --
-// Front-to-back blend of the tile's kf rows into o[5] (r, g, b, depth,
-// acc), with the exact per-pixel early exit (T is non-increasing, so once
-// T (1 - a) < 1e-4 no later row contributes) and a CTA exit once every
-// pixel has exited; pixels beyond the image edge never walk. The walk of
-// the macro-list forward (the list forward has its own, blend_lists.cu).
-// Every thread of the CTA must call it: it stages rows between barriers.
-template <class Rows>
-__device__ __forceinline__ void forward_walk(const Tile<Rows>& c, float* rows,
-                                             int kf, float o[5]) {
-  float T = 1.0f;
-#pragma unroll
-  for (int j = 0; j < 5; ++j) o[j] = 0.f;
-  bool done = !c.pix_ok;
-  for (int k0 = 0; k0 < kf; k0 += KC) {
-    const int n = min(KC, kf - k0);
-    __syncthreads();
-    stage_rows(rows, c, k0, n);
-    __syncthreads();
-    for (int i = 0; i < n; ++i) {
-      const float* r = rows + i * F;
-      if (!done) {
-        const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
-        if (e.ok) {
-          const float test = T * (1.0f - e.alpha);
-          if (test < T_EPS) {
-            done = true;
-          } else {
-            const float w = e.alpha * T;
-            o[0] += w * r[R0];
-            o[1] += w * r[G0];
-            o[2] += w * r[B0];
-            o[3] += w * r[CZ];
-            o[4] += w;
-            T = test;
-          }
-        }
-      }
-    }
-    if (__syncthreads_and(done)) break;
-  }
-}
-
-// ------------------------------------------------------- reverse machinery --
-// Serves only the macro-list VJP (macro_bwd_kernel, blend_macros.cu); the
-// list kernels that pull cotangents back (fused first-order and mapping
-// steps, blend VJP) run the tensor-core reverse below. A forward pass that
-// stores the transmittance at each KC-row chunk entry, then a back-to-front
-// pass per chunk that recomputes the chunk's per-row T_excl from its
-// checkpoint, carries the suffix sum(wbar * w) and reduces each row's six
-// conic moments and its feature sums deterministically (warp shuffles, then
-// a fixed-order sum over the warps in shared memory). No atomics: each CTA
-// owns the rows it writes.
-//
-// Shared memory (floats): rows [KC][F] | ck [nch][P] | tex [KC][P] |
-// red [KC][nw][NV] per-warp row sums | bsum [nw][8] per-warp tile sums.
-
-// Forward blend of the tile's rows into o[5] (r, g, b, depth, acc),
-// storing the transmittance at each chunk entry in ck; returns the index of
-// the row at which the pixel terminates (kf if it never does, 0 for a pixel
-// beyond the image edge). With Rows::kStopEarly, chunks stop once every
-// pixel has terminated. n_live receives the number of chunks walked, beyond
-// which every row's cotangent is 0. Every thread of the CTA must call it.
-template <class Rows>
-__device__ __forceinline__ int forward_checkpointed(const Tile<Rows>& c,
-                                                    float* rows, float* ck,
-                                                    int kf, float o[5],
-                                                    int& n_live) {
-  float T = 1.0f;
-#pragma unroll
-  for (int j = 0; j < 5; ++j) o[j] = 0.f;
-  int kend = c.pix_ok ? kf : 0;
-  n_live = n_chunks(kf);
-  for (int ch = 0; ch < n_chunks(kf); ++ch) {
-    const int k0 = ch * KC;
-    const int n = min(KC, kf - k0);
-    ck[ch * c.P + c.p] = T;
-    __syncthreads();
-    stage_rows(rows, c, k0, n);
-    __syncthreads();
-    if (kend == kf) {
-      for (int i = 0; i < n; ++i) {
-        const float* r = rows + i * F;
-        const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
-        if (!e.ok) continue;
-        const float test = T * (1.0f - e.alpha);
-        if (test < T_EPS) {
-          kend = k0 + i;
-          break;
-        }
-        const float w = e.alpha * T;
-        o[0] += w * r[R0];
-        o[1] += w * r[G0];
-        o[2] += w * r[B0];
-        o[3] += w * r[CZ];
-        o[4] += w;
-        T = test;
-      }
-    }
-    if constexpr (Rows::kStopEarly) {
-      if (__syncthreads_and(kend < kf)) {
-        n_live = ch + 1;
-        break;
-      }
-    }
-  }
-  return kend;
 }
 
 // sums[t][0..7] = the CTA's sums of part[0..NS-1] (zero beyond NS).
@@ -366,113 +253,10 @@ __device__ __forceinline__ void zero_row(float* dst) {
   for (int j = 0; j < 4; ++j) d4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// Values each pixel reduces per row: six conic moments and the r, g, b
-// feature sums, the depth feature sum when DEP, and for DEPCHAIN a second,
-// depth-only chain (six moments and its depth sum).
-template <bool DEP, bool DEPCHAIN>
-struct RevSpec {
-  static constexpr int NV0 = DEP ? 10 : 9;
-  static constexpr int NV = NV0 + (DEPCHAIN ? 7 : 0);
-};
-
-// Reverse blend, back to front, chunk by chunk from the checkpoints of
-// forward_checkpointed (kend, n_live its results). g[5]: this pixel's output
-// cotangent (r, g, b, depth, acc); the depth entry is read only when DEP.
-// gd: the depth-only second chain's cotangent when DEPCHAIN. Writes the
-// cotangent of row k to dd_t (and ddd_t) at row c.src(k); rows of the
-// chunks beyond n_live get zeros.
-template <bool DEP, bool DEPCHAIN, class Rows>
-__device__ __forceinline__ void reverse_blend(const Tile<Rows>& c, float* rows,
-                                              const float* ck, float* tex,
-                                              float* red, int kf, int kend,
-                                              int n_live, const float g[5],
-                                              float gd, float* dd_t,
-                                              float* ddd_t) {
-  using S_ = RevSpec<DEP, DEPCHAIN>;
-  constexpr int NV0 = S_::NV0, NV = S_::NV;
-  for (int k = n_live * KC + c.p; k < kf; k += c.P) {
-    const size_t row = (size_t)c.src(k) * F;
-    zero_row(dd_t + row);
-    if constexpr (DEPCHAIN) zero_row(ddd_t + row);
-  }
-  float S = 0.f, Sd = 0.f;  // suffix sums of wbar * w (each chain)
-  for (int ch = n_live - 1; ch >= 0; --ch) {
-    const int k0 = ch * KC;
-    const int n = min(KC, kf - k0);
-    __syncthreads();
-    stage_rows(rows, c, k0, n);
-    __syncthreads();
-    float Tc = ck[ch * c.P + c.p];
-    for (int i = 0; i < n; ++i) {
-      tex[i * c.P + c.p] = Tc;
-      if (k0 + i < kend) {
-        const RowEval e =
-            eval_row(rows + i * F, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
-        Tc *= (1.0f - e.alpha);
-      }
-    }
-    for (int i = n - 1; i >= 0; --i) {
-      const float* r = rows + i * F;
-      const RowEval e = eval_row(r, c.x0, c.y0, c.pxl, c.pyl, c.pix_ok);
-      const bool contrib = e.ok && (k0 + i < kend);
-      const float tx = tex[i * c.P + c.p];
-      const float om = 1.0f - e.alpha;
-      const float w = contrib ? e.alpha * tx : 0.0f;
-      const bool live = e.ok && (e.alpha < 0.99f);
-      float v[NV];
-      {
-        float wbar = r[R0] * g[0] + r[G0] * g[1] + r[B0] * g[2];
-        if constexpr (DEP) wbar += r[CZ] * g[3];
-        wbar += g[4];
-        const float obar = S / om;
-        const float abar = (contrib ? tx * wbar : 0.0f) - obar;
-        S += wbar * w;
-        const float sbar = live ? e.alpha * abar : 0.0f;
-#pragma unroll
-        for (int j = 0; j < 6; ++j) v[j] = sbar * c.pm[j];
-        v[6] = w * g[0];
-        v[7] = w * g[1];
-        v[8] = w * g[2];
-        if constexpr (DEP) v[9] = w * g[3];
-      }
-      if constexpr (DEPCHAIN) {
-        const float wbar = r[CZ] * gd;
-        const float obar = Sd / om;
-        const float abar = (contrib ? tx * wbar : 0.0f) - obar;
-        Sd += wbar * w;
-        const float sbar = live ? e.alpha * abar : 0.0f;
-#pragma unroll
-        for (int j = 0; j < 6; ++j) v[NV0 + j] = sbar * c.pm[j];
-        v[NV0 + 6] = w * gd;
-      }
-      // stored by every lane, unguarded (see tile_sums)
-#pragma unroll
-      for (int j = 0; j < NV; ++j)
-        red[(i * c.nw + c.warp) * NV + j] = warp_sum(v[j]);
-    }
-    __syncthreads();
-    for (int i = c.p; i < n; i += c.P) {
-      const float* r = rows + i * F;
-      float tot[NV];
-#pragma unroll
-      for (int j = 0; j < NV; ++j) {
-        float s = 0.f;
-        for (int w = 0; w < c.nw; ++w) s += red[(i * c.nw + w) * NV + j];
-        tot[j] = s;
-      }
-      const size_t row = (size_t)c.src(k0 + i) * F;
-      write_row(dd_t + row, r, c.x0, c.y0, tot, tot[6], tot[7], tot[8],
-                DEP ? tot[NV0 - 1] : 0.0f);
-      if constexpr (DEPCHAIN)
-        write_row(ddd_t + row, r, c.x0, c.y0, tot + NV0, 0.f, 0.f, 0.f,
-                  tot[NV0 + 6]);
-    }
-  }
-}
-
 // ---------------------------------------------- tensor-core reverse (TC) --
-// Used by the fused first-order and mapping steps and the blend VJP, one
-// CTA per tile. The forward stores the transmittance at each chunk's entry
+// Used by the fused first-order and mapping steps, the blend VJP and the
+// macro-list VJP, one CTA per tile. The forward stores the transmittance at
+// each chunk's entry
 // and finds the chunks that some pixel walks into (forward_live); the
 // chunks after them get zero rows. The live chunks are reversed back to
 // front: a pass over the chunk's rows from its checkpoint keeps each row's
@@ -504,7 +288,11 @@ __device__ __forceinline__ void reverse_blend(const Tile<Rows>& c, float* rows,
 // A [NA][KC][nt + 4] operands of one slice (the row stride nt + 4 makes
 // the fragment loads conflict-free) | gsh [nt][GCOL] feature cotangents |
 // bsum [nw][8] tile sums. The warps' partial products [nw][KC][NC] reuse
-// the operands' space after the products, their totals [KC][NC] too.
+// the operands' space after the products, their totals [KC][NC] too. A
+// list kernel keeps every checkpoint in shared memory (float* ck); the
+// macro-list VJP, whose lists may hold thousands of rows, the first chunks'
+// there and the rest in global scratch (SplitCk), so that its shared memory
+// does not grow with the list.
 
 constexpr int NCOL = 8;    // columns of one product (n of m16n8k8)
 constexpr int GCOL = 4;    // feature columns with a cotangent (r, g, b, z)
@@ -580,6 +368,28 @@ __device__ __forceinline__ Slices<NSL> make_slices(const Tile<Rows>& c,
   return q;
 }
 
+// The checkpoint of slice s at chunk ch's entry, for this thread's pixel.
+template <int NSL, class Rows>
+__device__ __forceinline__ float& ck_at(float* ck, int ch, int s,
+                                        const Tile<Rows>& c) {
+  return ck[(ch * NSL + s) * c.P + c.p];
+}
+
+// Checkpoints [nch][NSL][nt]: chunks below ns in shared memory (sh), the
+// rest in global scratch (gl, from chunk ns on).
+struct SplitCk {
+  float* sh;
+  float* gl;
+  int ns;
+};
+
+template <int NSL, class Rows>
+__device__ __forceinline__ float& ck_at(const SplitCk& ck, int ch, int s,
+                                        const Tile<Rows>& c) {
+  return ch < ck.ns ? ck.sh[(ch * NSL + s) * c.P + c.p]
+                    : ck.gl[((ch - ck.ns) * NSL + s) * c.P + c.p];
+}
+
 // Whether slice s's pixel of this thread lies within the tile's np pixels
 // (the index of its per-pixel inputs is then c.t np + s nt + c.p).
 template <int NSL, class Rows>
@@ -588,16 +398,17 @@ __device__ __forceinline__ bool in_tile(const Tile<Rows>& c, int s, int np) {
 }
 
 // Forward blend of the tile's rows into o[s][5] (r, g, b, depth, acc) per
-// slice, storing the transmittance at each chunk entry in ck; the barrier
+// slice, storing the transmittance at each chunk entry in ck (ck_at); the
+// barrier
 // before each chunk's staging also reduces the exit test, so the walk
 // stops once every pixel has terminated. kend[s]: the pixel's terminating
 // row (kf if it never terminates, 0 beyond the image edge); n_live
 // receives the number of chunks that some pixel walked into, beyond which
 // every row's cotangent is 0. Every thread of the CTA must call it.
-template <int NSL, class Rows>
+template <int NSL, class Rows, class Ck>
 __device__ __forceinline__ void forward_live(const Tile<Rows>& c,
                                              const Slices<NSL>& q,
-                                             float* rows, float* ck, int kf,
+                                             float* rows, Ck ck, int kf,
                                              float o[NSL][5], int kend[NSL],
                                              int& n_live) {
   float T[NSL];
@@ -618,7 +429,7 @@ __device__ __forceinline__ void forward_live(const Tile<Rows>& c,
     const int k0 = ch * KC;
     const int n = min(KC, kf - k0);
 #pragma unroll
-    for (int s = 0; s < NSL; ++s) ck[(ch * NSL + s) * c.P + c.p] = T[s];
+    for (int s = 0; s < NSL; ++s) ck_at<NSL>(ck, ch, s, c) = T[s];
     stage_rows(rows, c, k0, n);
     __syncthreads();
 #pragma unroll
@@ -647,7 +458,8 @@ __device__ __forceinline__ void forward_live(const Tile<Rows>& c,
 }
 
 // Reverse of live chunk ch of every slice, and the row cotangents written
-// to dd_t (and ddd_t). Per slice: the chunk's rows walked again from the
+// to rows c.src.out(k) of dd_t (and ddd_t). Per slice: the chunk's rows
+// walked again from the
 // slice's checkpoint, keeping each row's alpha (0 where the row does not
 // contribute) in A0 and entry transmittance in A1; back to front from the
 // suffix behind the chunk, overwriting them with sbar and w (and the depth
@@ -657,9 +469,9 @@ __device__ __forceinline__ void forward_live(const Tile<Rows>& c,
 // S, Sd: per slice, the suffix sums(wbar * w) of the rows after the chunk,
 // carried on to the chunk's first row. Every thread of the CTA must call
 // it.
-template <bool DEP, bool DEPCHAIN, int NSL, class Rows>
+template <bool DEP, bool DEPCHAIN, int NSL, class Rows, class Ck>
 __device__ __forceinline__ void reverse_chunk_tc(
-    const Tile<Rows>& c, const Slices<NSL>& q, float* rows, const float* ck,
+    const Tile<Rows>& c, const Slices<NSL>& q, float* rows, Ck ck,
     float* A, float* gsh, int lda, int kf, int ch, const int kend[NSL],
     const float* pmat, int np, const float g[NSL][5], const float gd[NSL],
     float S[NSL], float Sd[NSL], float* dd_t, float* ddd_t) {
@@ -696,7 +508,7 @@ __device__ __forceinline__ void reverse_chunk_tc(
   for (int s = 0; s < NSL; ++s) {
     // the slice's records, walked again from its checkpoint
     {
-      float T = ck[(ch * NSL + s) * c.P + c.p];
+      float T = ck_at<NSL>(ck, ch, s, c);
       for (int i = 0; i < KC; ++i) {
         float al = 0.f, tx = 0.f;
         if (i < n && k0 + i < kend[s]) {
@@ -828,7 +640,7 @@ __device__ __forceinline__ void reverse_chunk_tc(
   if (c.p < n) {
     const float* tr = tot + c.p * NC;
     const float* r = rows + c.p * F;
-    const size_t row = (size_t)c.src(k0 + c.p) * F;
+    const size_t row = (size_t)c.src.out(k0 + c.p) * F;
     write_row(dd_t + row, r, c.x0, c.y0, tr, tr[8], tr[9], tr[10],
               DEP ? tr[11] : 0.0f);
     if constexpr (DEPCHAIN)
@@ -841,14 +653,14 @@ __device__ __forceinline__ void reverse_chunk_tc(
 // the checkpoints ck): zero rows beyond the live chunks, then each live
 // chunk back to front, recorded and reversed on the tensor cores. Every
 // thread of the CTA must call it.
-template <bool DEP, bool DEPCHAIN, int NSL, class Rows>
+template <bool DEP, bool DEPCHAIN, int NSL, class Rows, class Ck>
 __device__ __forceinline__ void reverse_tile_tc(
-    const Tile<Rows>& c, const Slices<NSL>& q, float* rows, const float* ck,
+    const Tile<Rows>& c, const Slices<NSL>& q, float* rows, Ck ck,
     float* A, float* gsh, int lda, int kf, const int kend[NSL], int n_live,
     const float* pmat, int np, const float g[NSL][5], const float gd[NSL],
     float* dd_t, float* ddd_t) {
   for (int k = n_live * KC + c.p; k < kf; k += c.P) {
-    const size_t row = (size_t)c.src(k) * F;
+    const size_t row = (size_t)c.src.out(k) * F;
     zero_row(dd_t + row);
     if constexpr (DEPCHAIN) zero_row(ddd_t + row);
   }
@@ -868,14 +680,6 @@ size_t reverse_tc_smem(int kf, int nt, int nsl, bool depchain) {
   const int na = depchain ? 3 : 2;
   return (size_t)(KC * F + n_chunks(kf) * nsl * nt + na * KC * (nt + 4) +
                   nt * GCOL + (nt / 32) * 8) *
-         sizeof(float);
-}
-
-// Shared memory of the reverse machinery, in bytes.
-size_t reverse_smem(int kf, int p, int nv) {
-  const int nw = p / 32;
-  return (size_t)(KC * F + n_chunks(kf) * p + KC * p + KC * nw * nv +
-                  nw * 8) *
          sizeof(float);
 }
 

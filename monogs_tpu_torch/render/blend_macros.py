@@ -17,9 +17,11 @@ render at the same ``k_fine``. Outputs are [Tm, ft, P, 8] with columns
   masked walk, else the compact blend's cap. For CUDA tensors they launch
   ``macro_fwd_kernel`` / ``macro_bwd_kernel`` (``csrc/blend_macros.cu``)
   over the first ``cap`` rows that enter each tile (cap = Km, or
-  ``k_fine``); for CPU tensors they run the plain versions. Launches are
-  counted in ``LAUNCHES``, per backend. A CUDA tensor never falls back to
-  the plain version.
+  ``k_fine``), with a scratch in device memory that the library sizes
+  (``macro_scratch_bytes``: the row index and checkpoints beyond shared
+  memory, the VJP's compact partials and slot map); for CPU tensors they
+  run the plain versions. Launches are counted in ``LAUNCHES``, per
+  backend. A CUDA tensor never falls back to the plain version.
 - The plain masked walk is the list blend's plain version
   (``blend_lists._forward_plain``) over all Km rows of each (macro, fine
   tile), the rows that do not enter the tile carrying LOGO = -1e30; its VJP
@@ -206,8 +208,7 @@ def blend_compact_vjp_plain(data_m, xy0, counts, pmat, g_outs, tile: int,
 # ------------------------------------------------------------------ kernels
 
 def check_macro_inputs(data_m, xy0, counts, pmat, tile: int):
-    """Validate the kernels' inputs; returns (n_macro, km, p). A list too
-    long for the card's shared memory is refused by the launch itself."""
+    """Validate the kernels' inputs; returns (n_macro, km, p)."""
     n_macro, km, nf = data_m.shape
     p = pmat.shape[1]
     if nf != _F:
@@ -219,6 +220,9 @@ def check_macro_inputs(data_m, xy0, counts, pmat, tile: int):
     _check("xy0", xy0, (n_macro, 2))
     _check("counts", counts, (n_macro,))
     _check("pmat", pmat, (6, p))
+    if data_m.data_ptr() % 16:
+        raise ValueError("data_m: the kernels copy rows 16 bytes at a time, "
+                         "so its data must start on a 16-byte boundary")
     return n_macro, km, p
 
 
@@ -226,6 +230,14 @@ def _lib():
     from .._build import library
 
     return library("blend_macros")
+
+
+def _scratch(lib, fwd: bool, n_macro, km, cap, p, ft_side, device):
+    """The kernels' scratch in device memory, sized by the library (the
+    parts of the row index and of the checkpoints beyond shared memory,
+    and the VJP's compact partials and slot map)."""
+    n = int(lib.macro_scratch_bytes(int(fwd), n_macro, km, cap, p, ft_side))
+    return torch.empty(max(n, 16), dtype=torch.uint8, device=device)
 
 
 def macro_fwd_cuda(data_m, xy0, counts, pmat, tile, ft_side, width, height,
@@ -236,27 +248,31 @@ def macro_fwd_cuda(data_m, xy0, counts, pmat, tile, ft_side, width, height,
     ft = ft_side * ft_side
     outs = torch.empty((n_macro, ft, p, 8), dtype=torch.float32,
                        device=data_m.device)
-    rc = _lib().macro_fwd(
+    lib = _lib()
+    scratch = _scratch(lib, True, n_macro, km, cap, p, ft_side,
+                       data_m.device)
+    rc = lib.macro_fwd(
         data_m.data_ptr(), xy0.data_ptr(), counts.data_ptr(),
-        pmat.data_ptr(), outs.data_ptr(), n_macro, km, cap, p, tile, ft_side,
-        width, height, _stream())
+        pmat.data_ptr(), outs.data_ptr(), scratch.data_ptr(), n_macro, km,
+        cap, p, tile, ft_side, width, height, _stream())
     _raise_on(rc, "macro_fwd")
     return outs
 
 
 def macro_bwd_cuda(data_m, xy0, counts, pmat, g_outs, tile, ft_side, width,
                    height, cap: int):
-    """Launch macro_bwd_kernel (per-fine-tile partials) and the fixed-order
-    sum of the partials over the fine tiles."""
+    """Launch macro_bwd_kernel (each fine tile's compact partials) and the
+    fixed-order sum of the partials over the fine tiles."""
     n_macro, km, p = check_macro_inputs(data_m, xy0, counts, pmat, tile)
     ft = ft_side * ft_side
     _check("g_outs", g_outs, (n_macro, ft, p, 8))
-    partial = torch.empty((n_macro, ft, km, _F), dtype=torch.float32,
-                          device=data_m.device)
+    lib = _lib()
+    scratch = _scratch(lib, False, n_macro, km, cap, p, ft_side,
+                       data_m.device)
     ddata = torch.empty_like(data_m)
-    rc = _lib().macro_bwd(
+    rc = lib.macro_bwd(
         data_m.data_ptr(), xy0.data_ptr(), counts.data_ptr(),
-        pmat.data_ptr(), g_outs.data_ptr(), partial.data_ptr(),
+        pmat.data_ptr(), g_outs.data_ptr(), scratch.data_ptr(),
         ddata.data_ptr(), n_macro, km, cap, p, tile, ft_side, width, height,
         _stream())
     _raise_on(rc, "macro_bwd")

@@ -421,26 +421,38 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(card):
 
 # ------------------------------------------------------ macro-list kernels
 
+BENCH_INTR = Intrinsics(fx=535.4, fy=539.2, cx=320.1, cy=247.6, width=640,
+                        height=480)
+RGBD_INTR = Intrinsics(fx=320.0, fy=320.0, cx=159.5, cy=119.5, width=320,
+                       height=240)
+
+
 def macro_case(dev, shape):
     """(data_m, xy0, counts, pmat, tile, ft_side, W, H, k_fine) from a
     synthetic scene binned at a small pose: the small frame of this file,
     the bench's 640x480 (k_macro 1024, k_fine 96), the 320x240 of
-    configs/synthetic/rgbd.yaml (k_macro 4096, k_fine 256) or a 100x77
-    frame that is no multiple of the tile. Macro 0's count is set to 0 and
-    the first ten valid rows of macro 1 are moved off every tile."""
-    intr, k_macro, k_fine, n = {
-        "small": (INTR, 1024, 96, 3000),
-        "bench": (Intrinsics(fx=535.4, fy=539.2, cx=320.1, cy=247.6,
-                             width=640, height=480), 1024, 96, 30000),
-        "rgbd": (Intrinsics(fx=320.0, fy=320.0, cx=159.5, cy=119.5,
-                            width=320, height=240), 4096, 256, 30000),
+    configs/synthetic/rgbd.yaml (k_macro 4096, k_fine 256), a 100x77
+    frame that is no multiple of the tile, the bench's in 32 px tiles (P
+    1024 with k_macro 1024) or a deep 320x240 (k_macro 8192, 60k large
+    Gaussians of opacity 0.006-0.03: 1,000-2,700 rows enter a fine tile and
+    pixels walk past 1,024 of them, so the index and the VJP's checkpoints
+    spill to global scratch). The last two are shapes that the earlier
+    macro VJP refused for its shared memory. Macro 0's count is set to 0
+    and the first ten valid rows of macro 1 are moved off every tile."""
+    intr, k_macro, k_fine, n, tile = {
+        "small": (INTR, 1024, 96, 3000, 16),
+        "bench": (BENCH_INTR, 1024, 96, 30000, 16),
+        "rgbd": (RGBD_INTR, 4096, 256, 30000, 16),
         "odd": (Intrinsics(fx=100.0, fy=100.0, cx=49.5, cy=38.0, width=100,
-                           height=77), 1024, 96, 3000),
+                           height=77), 1024, 96, 3000, 16),
+        "tile32": (BENCH_INTR, 1024, 96, 30000, 32),
+        "deep": (RGBD_INTR, 8192, 256, 60000, 16),
     }[shape]
-    cfg = CFG._replace(k_macro=k_macro, k_fine=k_fine)
+    cfg = CFG._replace(k_macro=k_macro, k_fine=k_fine, tile=tile)
     g = torch.Generator().manual_seed(5)
+    scale = (0.03, 0.1) if shape == "deep" else (0.015, 0.06)
     scene = make_synthetic_scene(g, n=n, spread=2.0, depth_mean=3.0,
-                                 scale_min=0.015, scale_max=0.06)
+                                 scale_min=scale[0], scale_max=scale[1])
     scene = type(scene)(*(x.to(dev) for x in scene))
     T = se3.se3_exp(torch.tensor([0.01, -0.02, 0.0, 0.01, 0.0, -0.01],
                                  device=dev))
@@ -450,6 +462,9 @@ def macro_case(dev, shape):
         data_m = data_m.contiguous()
     counts[0] = 0.0
     data_m[1, :10, rr._U] = -1000.0
+    if shape == "deep":
+        opa = torch.rand(data_m.shape[:2], generator=g.manual_seed(6))
+        data_m[..., rr._LOGO] = torch.log(0.006 + 0.024 * opa).to(dev)
     assert float(counts[1]) > 10 and float(counts.max()) > 0
     return (data_m, xy0, counts, rr._tile_pmat(cfg, dev), cfg.tile,
             cfg.macro_tiles, intr.width, intr.height, k_fine)
@@ -468,12 +483,15 @@ def macro_fns(kind, k_fine):
             (k_fine,), ("compact_fwd", "compact_bwd"))
 
 
-@pytest.mark.parametrize("shape", ["small", "bench", "rgbd", "odd"])
+@pytest.mark.parametrize("shape", ["small", "bench", "rgbd", "odd", "tile32",
+                                   "deep"])
 @pytest.mark.parametrize("kind", ["macro", "compact"])
 def test_macro_kernels_on_card(card, kind, shape):
     """Forward and VJP of the masked walk and of the compact blend against
-    their plain versions; a macro with count 0 and rows off every tile
-    get no cotangent; two launches of the VJP are bit-identical."""
+    their plain versions, the VJP also in float64 (f64_excess at most
+    2^-14 of a column maximum, as the list VJP); a macro with count 0 and
+    rows off every tile get no cotangent; two launches of each are
+    bit-identical."""
     from monogs_tpu_torch.render import blend_macros as bm
 
     (data_m, xy0, counts, pmat, tile, fs, w, h, k_fine) = macro_case(card,
@@ -484,14 +502,17 @@ def test_macro_kernels_on_card(card, kind, shape):
     n0 = dict(bm.LAUNCHES)
     outs = bm.blend_macros(*args, *geo, k_fine=kf)
     assert_outs(outs, fwd_p(*args, *geo, *extra))
+    assert torch.equal(outs, bm.blend_macros(*args, *geo, k_fine=kf))
     g = torch.Generator(device=card).manual_seed(6)
     g_outs = torch.randn(outs.shape, generator=g, device=card)
     dd = bm.blend_macros_vjp(*args, g_outs, *geo, k_fine=kf)
     want = vjp_p(*args, g_outs, *geo, *extra)
     assert_per_column(dd, want, 1e-4)
+    want64 = vjp_p(*as_f64(torch, args + (g_outs,)), *geo, *extra)
+    assert f64_excess(torch, dd, want, want64) <= TF32_SPLIT_FRAC
     assert torch.equal(dd, bm.blend_macros_vjp(*args, g_outs, *geo,
                                                k_fine=kf))
-    assert bm.LAUNCHES[keys[0]] == n0[keys[0]] + 1
+    assert bm.LAUNCHES[keys[0]] == n0[keys[0]] + 2
     assert bm.LAUNCHES[keys[1]] == n0[keys[1]] + 2
     assert float(torch.abs(dd[0]).max()) == 0.0
     assert float(torch.abs(dd[1, :10]).max()) == 0.0
@@ -522,8 +543,10 @@ def test_macro_function_backward_on_card(card, kind):
 
 
 def test_macro_list_too_long_is_refused(card):
-    """A masked-walk VJP whose row index and checkpoints do not fit in a
-    CTA's shared memory raises, and the next launch runs."""
+    """A masked-walk VJP over a list of 16,384 rows, which the earlier VJP
+    refused (its row index and checkpoints lived in shared memory), now
+    runs and matches the plain version; the shared memory of neither
+    macro kernel depends on the list's length, and the next launch runs."""
     from monogs_tpu_torch.render import blend_macros as bm
 
     (data_m, xy0, counts, pmat, tile, fs, w, h, _) = macro_case(card,
@@ -533,8 +556,13 @@ def test_macro_list_too_long_is_refused(card):
     long_m[:, :data_m.shape[1]] = data_m
     g_outs = torch.ones((data_m.shape[0], fs * fs, tile * tile, 8),
                         device=card)
-    with pytest.raises(RuntimeError, match="macro_bwd"):
-        bm.blend_macros_vjp(long_m, xy0, counts, pmat, g_outs, tile, fs, w, h)
+    dd = bm.blend_macros_vjp(long_m, xy0, counts, pmat, g_outs, tile, fs, w,
+                             h)
+    assert_per_column(dd, bm.blend_macros_vjp_plain(
+        long_m, xy0, counts, pmat, g_outs, tile, fs, w, h), 1e-4)
+    assert float(torch.abs(dd[:, data_m.shape[1]:]).max()) == 0.0
+    from chip_smoke import macro_attrs
+    assert macro_attrs()["macro_bwd"]["ctas_per_sm"] >= 1
     outs = bm.blend_macros(data_m, xy0, counts, pmat, tile, fs, w, h)
     assert_outs(outs, bm.blend_macros_plain(data_m, xy0, counts, pmat, tile,
                                             fs, w, h))
