@@ -60,7 +60,12 @@ JAX. Phases, each of which exits non-zero on failure:
 8. BA reproducibility: one BA iteration of the mapping path's window run
    three times from one saved state on the default fused branch (all
    tiles and a quarter) and on each mapping knob; every tensor of the map
-   and the window's cameras must come out with the same bits.
+   and the window's cameras must come out with the same bits;
+9. SLAM path: full SLAM through ``SLAM(config).run()``, ``--eval``, on
+   configs/synthetic/rgbd.yaml, mono.yaml and rgbd_threaded.yaml at their
+   widths, cut to 16 frames and fewer BA / refinement iterations (see
+   ``SLAM_RUNS``): keyframe ATE, PSNR/SSIM before and after refinement,
+   the stage split, and kernels #1-#6 launched.
 Each path's launch counters are zeroed just before it and read just after.
 
 Output, one JSON object per line: each path's metrics, then
@@ -1821,6 +1826,170 @@ def ba_repro_path(torch, intr, cfg, scene, frames, poses, strict=True):
     return out
 
 
+# ------------------------------------------------------------ full SLAM
+
+# configs/synthetic/*.yaml cut in depth only: widths (320x240, the
+# 8192-Gaussian scene, k_fine 256, track_k_fine 128, capacity 65,536,
+# insert cap 16,384, mapping_tile_frac 0.25) and the tracking budgets as
+# shipped, fewer init / mapping / refinement iterations, 16 frames. Two
+# cuts of the sequence: "orbit16", scripts/verify_e2e.py's (a 16-frame
+# orbit, its amplitudes scaled down with the frame count to keep the
+# per-frame motion: the orbit spans the sequence whatever its length, so
+# its views overlap by more than kf_overlap and no keyframe fires after
+# the first), and "first16", the stock 64-frame sequence's first 16
+# frames (the stock run's own motion, a quarter of its orbit). The ATE
+# bound, 0.05 m, is scripts/verify_e2e.py's and test_slam_e2e.py's.
+SLAM_FRAMES = 16
+SLAM_ORBIT16 = dict(n_frames=16, trans_amp=0.0625, rot_amp=0.015)
+SLAM_ITERS = dict(init_itr_num=120, mapping_itr_num=30, refinement_itr=200)
+# (name, config, cut, ATE bound or None): the threaded mode on "first16"
+# (the stock motion, 25 mm a frame, with 30 BA iterations a keyframe)
+# drifts past the bound (PERF.md §6) and is run to record it
+SLAM_RUNS = (("rgbd", "rgbd.yaml", "orbit16", 0.05),
+             ("rgbd_first16", "rgbd.yaml", "first16", 0.05),
+             ("mono", "mono.yaml", "first16", None),
+             ("threaded", "rgbd_threaded.yaml", "orbit16", 0.05),
+             ("threaded_first16", "rgbd_threaded.yaml", "first16", None))
+# the list kernels a SLAM run on "pallas_lists" launches: #1, #2, #3 (mono
+# and RGB-D), #4, #5 (colour refinement), #6 (mono and RGB-D)
+SLAM_KERNELS = ("fwd", "fwd_counts", "fo_grad", "fo_grad_rgbd", "jvp8",
+                "bwd", "map_grad", "map_grad_rgbd")
+
+
+def slam_config(name, cut):
+    """A config of configs/synthetic/ with the depth cut and --eval."""
+    from monogs_tpu_torch.slam.config import load_config
+
+    cfg = load_config(str(ROOT / "configs" / "synthetic" / name))
+    if cut == "orbit16":
+        cfg["Dataset"]["synthetic"].update(SLAM_ORBIT16)
+    cfg["Training"].update(SLAM_ITERS)
+    cfg["Results"].update(save_results=True, use_gui=False,
+                          eval_rendering=True)
+    return cfg
+
+
+class FirstFrames:
+    """The first ``n`` frames of a dataset."""
+
+    def __init__(self, ds, n):
+        self.ds, self.n = ds, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        if idx >= self.n:
+            raise IndexError(idx)
+        return self.ds[idx]
+
+
+def slam_run(torch, name, file, cut, cfg, device):
+    """One SLAM run through ``SLAM(config).run()`` with its metrics."""
+    from monogs_tpu_torch.data import load_dataset
+    from monogs_tpu_torch.slam import backend
+    from monogs_tpu_torch.slam.runtime import SLAM
+
+    prunes = []
+    prune = backend.covisibility_prune
+
+    def counted_prune(*args, **kw):
+        prunes.append(1)
+        return prune(*args, **kw)
+
+    save_dir = ROOT / "build" / "slam_smoke" / name
+    save_dir.mkdir(parents=True, exist_ok=True)
+    ds = FirstFrames(load_dataset(cfg, device=device), SLAM_FRAMES)
+    slam = SLAM(cfg, dataset=ds, save_dir=str(save_dir), device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    backend.covisibility_prune = counted_prune
+    t0 = time.perf_counter()
+    try:
+        res = slam.run()
+        if device == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        backend.covisibility_prune = prune
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    fe = slam.frontend
+    stages = res["stages"]
+    track_s, track_n = stages["tracking"]
+    out = dict(
+        config=f"configs/synthetic/{file}", cut=cut,
+        n_frames=res["n_frames"], fps=res["fps"], seconds=seconds,
+        ate=res["ate"], before=res["before"], after=res["after"],
+        n_active=int(slam.backend.gaussians.n_active),
+        kf_indices=fe.kf_indices, window=fe.current_window,
+        tracking_ms_per_frame=1000.0 * track_s / max(track_n, 1),
+        stages=stages, covisibility_prunes=len(prunes),
+        n_pipelined=fe.n_pipelined, pending_drained=fe._pending is None,
+        peak_mem_bytes=(torch.cuda.max_memory_allocated()
+                        if device == "cuda" else None),
+        launches={k: v for k, v in launches.items() if v})
+    poses_ok = all(bool(torch.isfinite(f.T).all())
+                   for f in fe.cameras.values())
+    return out, launches, poses_ok
+
+
+def slam_path(torch, smi, device="cuda"):
+    """Full SLAM through the port's entry point, --eval semantics: the
+    trimmed configs/synthetic/rgbd.yaml (single_thread) on both cuts,
+    mono.yaml on "first16" (window_size 5: fewer frames fill it, so the
+    covisibility prune runs), rgbd_threaded.yaml on both cuts. Each run
+    prints one JSON line; its launch counters are zeroed just before it
+    and read just after. Returns the launches summed over the runs."""
+    total = {}
+    for name, file, cut, ate_bound in SLAM_RUNS:
+        cfg = slam_config(file, cut)
+        if name == "mono":
+            cfg["Training"]["window_size"] = 5
+        out, launches, poses_ok = slam_run(torch, name, file, cut, cfg,
+                                           device)
+        out["device"] = smi
+        print(json.dumps({f"slam_{name}": out}, default=float), flush=True)
+        log(f"slam {name}: {out['fps']:.3f} fps, ATE {out['ate']}, "
+            f"keyframes {out['kf_indices']}, "
+            f"{out['tracking_ms_per_frame']:.1f} ms a frame tracking")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        check(out["n_frames"] == SLAM_FRAMES and poses_ok,
+              f"slam {name}: {out['n_frames']} frames, finite poses "
+              f"{poses_ok}")
+        check(out["after"]["mean_psnr"] >= out["before"]["mean_psnr"],
+              f"slam {name}: PSNR after refinement "
+              f"{out['after']['mean_psnr']} below before "
+              f"{out['before']['mean_psnr']}")
+        if cut == "first16":
+            check(len(out["kf_indices"]) >= 2,
+                  f"slam {name}: keyframes {out['kf_indices']}")
+        if name == "mono":
+            check(out["n_active"] > 200, f"slam mono: n_active "
+                  f"{out['n_active']}")
+            check(out["covisibility_prunes"] > 0,
+                  "slam mono: the covisibility prune never ran")
+            need = ("fo_grad", "map_grad")
+        else:
+            need = ("fwd", "fwd_counts", "fo_grad_rgbd", "jvp8", "bwd",
+                    "map_grad_rgbd")
+        check(ate_bound is None or out["ate"] < ate_bound,
+              f"slam {name}: ATE {out['ate']} m >= {ate_bound}")
+        if name.startswith("threaded"):
+            check(out["n_pipelined"] >= 1 and out["pending_drained"],
+                  f"slam threaded: n_pipelined {out['n_pipelined']}, "
+                  f"drained {out['pending_drained']}")
+        missing = [k for k in need if not launches.get(k)]
+        check(device != "cuda" or not missing,
+              f"slam {name}: kernels {missing} never launched")
+    missing = [k for k in SLAM_KERNELS if not total.get(k)]
+    check(device != "cuda" or not missing,
+          f"slam path: kernels {missing} never launched")
+    return total
+
+
 # ------------------------------------------------------- A/B-knob paths
 
 AB_ITERS = 5            # BA iterations of each mapping knob
@@ -2061,6 +2230,7 @@ def run(scene_seed):
                      scene, frames, chain_poses)
     repro = timed("ba_repro_path", ba_repro_path, intr, cfg, scene, frames,
                   chain_poses)
+    slam_launches = timed("slam_path", slam_path, smi)
     for name, e in entries.items():
         kind = name.split("@")[0]
         e.update((attrs32 if name.endswith("@tile32") else attrs).get(kind,
@@ -2069,6 +2239,8 @@ def run(scene_seed):
                          else macro_launches[kind] if kind in MACRO_KERNELS
                          else ab_launches[kind] if kind in AB_MAP_KERNELS
                          else map_launches[kind])
+        e["slam_launches"] = (0 if name.endswith("@tile32")
+                              else slam_launches.get(kind, 0))
     summary["build_s"] = build_s
     summary["phase_s"] = phase_s
     summary["scene_seed"] = scene_seed

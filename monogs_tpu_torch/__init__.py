@@ -32,3 +32,13 @@ def resolve_device(device) -> torch.device:
             "PyTorch path"
         )
     return dev
+
+
+def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
+    """``x`` (a tensor, a numpy array or anything ``np.asarray`` takes, such
+    as another package's array) as a tensor of ``dtype`` on ``device``."""
+    if not torch.is_tensor(x):
+        import numpy as np
+
+        x = np.asarray(x)
+    return torch.as_tensor(x, dtype=dtype, device=device)

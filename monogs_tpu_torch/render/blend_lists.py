@@ -85,6 +85,8 @@ Kernels (TPU kernel replaced -> bound on the H100 -> design):
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 # blend constants and the packed row layout (renderer._F columns)
@@ -102,9 +104,19 @@ LAUNCHES = {"fwd": 0, "fwd_counts": 0, "fo_grad": 0, "fo_grad_rgbd": 0,
             "map_grad_madd": 0, "map_grad_madd_rgbd": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+
+
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_launch(counts: dict, name: str):
+    """One launch of ``name`` into ``counts``, under a lock: the SLAM
+    frontend and backend threads launch kernels concurrently."""
+    with _LAUNCH_LOCK:
+        counts[name] += 1
 
 
 # ------------------------------------------------------------ plain versions
@@ -386,7 +398,7 @@ def _fwd_cuda(d, tx0, ty0, pmat, width, height, counts: bool):
         outs.data_ptr(), cnts.data_ptr() if counts else None,
         n_tiles, kf, p, width, height, _stream())
     _raise_on(rc, "blend_fwd")
-    LAUNCHES["fwd_counts" if counts else "fwd"] += 1
+    count_launch(LAUNCHES, "fwd_counts" if counts else "fwd")
     return outs, cnts
 
 
@@ -437,7 +449,7 @@ def fo_grad_lists(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
         sums.data_ptr(), n_tiles, kf, p, width, height, int(use_huber),
         delta, 2.0 * delta, delta * delta, eps, _stream())
     _raise_on(rc, "blend_fo_grad")
-    LAUNCHES["fo_grad" if gtd_t is None else "fo_grad_rgbd"] += 1
+    count_launch(LAUNCHES, "fo_grad" if gtd_t is None else "fo_grad_rgbd")
     return dd, dd_dep, sums
 
 
@@ -463,7 +475,7 @@ def blend_lists_jvp8(d, d_tan, tx0, ty0, pmat, width: int, height: int):
         pmat.data_ptr(), outs.data_ptr(), touts.data_ptr(), n_tiles, kf, p,
         width, height, _stream())
     _raise_on(rc, "blend_jvp8")
-    LAUNCHES["jvp8"] += 1
+    count_launch(LAUNCHES, "jvp8")
     return outs, touts
 
 
@@ -480,7 +492,7 @@ def blend_lists_vjp(d, tx0, ty0, pmat, g_outs, width: int, height: int):
         g_outs.data_ptr(), dd.data_ptr(), n_tiles, kf, p, width, height,
         _stream())
     _raise_on(rc, "blend_bwd")
-    LAUNCHES["bwd"] += 1
+    count_launch(LAUNCHES, "bwd")
     return dd
 
 
@@ -545,6 +557,7 @@ def map_grad_lists(d, tx0, ty0, pmat, gt_t, mask_t, ea, eb, width: int,
         dd.data_ptr(), sums.data_ptr(), n_tiles, kf, p, width, height,
         int(use_exposure), w_rgb, w_dep, eps, _stream())
     _raise_on(rc, "blend_map_grad")
-    LAUNCHES["map_grad" + ("_madd" if madd is not None else "")
-             + ("_rgbd" if gtd_t is not None else "")] += 1
+    count_launch(LAUNCHES, "map_grad"
+                 + ("_madd" if madd is not None else "")
+                 + ("_rgbd" if gtd_t is not None else ""))
     return dd, sums

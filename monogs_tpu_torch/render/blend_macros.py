@@ -46,7 +46,7 @@ import torch
 
 from .blend_lists import (
     _F, _LOGO, _RAD, _U, _V, _check, _dd_from_gouts_plain, _forward_plain,
-    _on_cuda, _raise_on, _stream,
+    _on_cuda, _raise_on, _stream, count_launch,
 )
 
 LAUNCHES = {"macro_fwd": 0, "macro_bwd": 0, "compact_fwd": 0,
@@ -302,7 +302,7 @@ def blend_macros(data_m, xy0, counts, pmat, tile: int, ft_side: int,
                                    width, height, k_fine)
     outs = macro_fwd_cuda(data_m, xy0, counts, pmat, tile, ft_side, width,
                           height, _cap(data_m, k_fine))
-    LAUNCHES[_backend(k_fine) + "_fwd"] += 1
+    count_launch(LAUNCHES, _backend(k_fine) + "_fwd")
     return outs
 
 
@@ -319,7 +319,7 @@ def blend_macros_vjp(data_m, xy0, counts, pmat, g_outs, tile: int,
                                        tile, ft_side, width, height, k_fine)
     dd = macro_bwd_cuda(data_m, xy0, counts, pmat, g_outs, tile, ft_side,
                         width, height, _cap(data_m, k_fine))
-    LAUNCHES[_backend(k_fine) + "_bwd"] += 1
+    count_launch(LAUNCHES, _backend(k_fine) + "_bwd")
     return dd
 
 

@@ -1,8 +1,17 @@
-"""Per-frame device tensors (counterpart of ``monogs_tpu/slam/frame.py``)."""
+"""Frame containers (counterpart of ``monogs_tpu/slam/frame.py``).
+
+``FrameData`` holds a frame's device tensors (images, depth, masks);
+``Frame`` the frontend's per-frame state: the pose estimate, the ground
+truth, the exposure, and the data until ``clean()`` frees it for a frame
+that did not become a keyframe. Its tensors lie on the frame's device and
+are replaced, never written in place, once a keyframe carrying them has
+gone to the backend.
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,3 +46,33 @@ def make_frame_data(gt_image, gt_depth, edge_threshold, rgb_boundary_threshold,
         gt_image=gt_image, gt_depth=depth,
         has_depth=torch.tensor(gt_depth is not None, device=dev),
         track_mask=track_mask, mapping_mask=mapping_mask)
+
+
+@dataclass
+class Frame:
+    """Frontend-side frame state."""
+
+    uid: int
+    T: torch.Tensor                   # [4, 4] world->camera estimate
+    T_gt: torch.Tensor                # [4, 4] ground truth (for eval)
+    exposure_a: torch.Tensor          # [] affine exposure gain
+    exposure_b: torch.Tensor          # [] affine exposure offset
+    data: Optional[FrameData] = None  # freed by clean() for non-keyframes
+    depth: Optional[torch.Tensor] = None  # [H, W] sensor depth (insertion)
+
+    @classmethod
+    def new(cls, uid: int, T_gt, data: FrameData, depth=None) -> "Frame":
+        """A frame at the identity pose with unit exposure, on the device
+        of ``data``."""
+        dev = data.gt_image.device
+        return cls(uid=uid, T=torch.eye(4, device=dev),
+                   T_gt=torch.as_tensor(T_gt, dtype=torch.float32,
+                                        device=dev),
+                   exposure_a=torch.ones((), device=dev),
+                   exposure_b=torch.zeros((), device=dev), data=data,
+                   depth=depth)
+
+    def clean(self):
+        """Free the per-frame tensors."""
+        self.data = None
+        self.depth = None
