@@ -38,6 +38,14 @@ class Intrinsics(NamedTuple):
         return self.height / (2.0 * self.fy)
 
 
+def focal2fov(focal: float, pixels: int) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
+def fov2focal(fov: float, pixels: int) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
 def backproject_pixels(depth, intr: Intrinsics):
     """[H, W] depth -> [H, W, 3] camera-space points, pixel (ix, iy) at
     ((ix - cx) / fx * z, (iy - cy) / fy * z, z) (the Open3D convention the

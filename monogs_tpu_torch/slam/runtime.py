@@ -16,10 +16,12 @@ plain versions (the JAX package swaps Pallas backends for "xla" on a CPU
 instead). ``Renderer.pallas_interpret`` is read into the unused field of
 the same name.
 
-Not ported here, each raising ``NotImplementedError`` that names its
-slice: the GUI and live mode (``Results.use_gui``, dataset type
-"realsense"), sharded mapping (``Parallel.n_devices`` or
-``gauss_devices`` above 1), and the datasets other than "synthetic".
+The dataset is the one ``config["Dataset"]`` names (``load_dataset``:
+TUM, Replica and EuRoC from their files, or the synthetic sequence), on
+the run's device. Not ported here, each raising ``NotImplementedError``
+that names its slice: the GUI and live mode (``Results.use_gui``, dataset
+type "realsense"), and sharded mapping (``Parallel.n_devices`` or
+``gauss_devices`` above 1).
 """
 
 from __future__ import annotations

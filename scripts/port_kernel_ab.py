@@ -236,7 +236,7 @@ def main():
     from monogs_tpu_torch import _build
 
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
-    csrc = _build.SOURCES["blend_lists"].parent
+    csrc = _build.SOURCES["blend_lists"].path.parent
     srcs = {}
     if args.no_fmad:
         srcs["no_fmad"] = (csrc, [f for f in flags if f != "-fmad=false"])

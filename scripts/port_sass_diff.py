@@ -136,7 +136,8 @@ def main():
                     help="directory for each build's disassembly")
     args = ap.parse_args()
     for name in SOURCES:
-        ours = sass(_build.SOURCES[name.split(".")[0]], "this", args.dump)
+        ours = sass(_build.SOURCES[name.split(".")[0]].path, "this",
+                    args.dump)
         theirs = sass(args.against / "monogs_tpu_torch" / "csrc" / name,
                       "other", args.dump)
         by_base = {base_name(fn): fn for fn in theirs}

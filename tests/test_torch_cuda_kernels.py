@@ -566,3 +566,117 @@ def test_macro_list_too_long_is_refused(card):
     outs = bm.blend_macros(data_m, xy0, counts, pmat, tile, fs, w, h)
     assert_outs(outs, bm.blend_macros_plain(data_m, xy0, counts, pmat, tile,
                                             fs, w, h))
+
+
+# ---------------------------------------------- the data loaders' kernels
+
+def textured_pair(dev, h=120, w=200, seed=0):
+    """A smooth random texture and its copy shifted by 5-11 px by row."""
+    g = torch.Generator().manual_seed(seed)
+    base = torch.nn.functional.avg_pool2d(
+        torch.rand((1, 1, h, w + 16), generator=g), 3, 1, 1)[0, 0]
+    base = ((base - base.min()) / (base.max() - base.min()) * 255).round()
+    base = base.to(torch.uint8)
+    left = base[:, :w].contiguous()
+    right = torch.stack([base[y, 5 + 6 * y // h:5 + 6 * y // h + w]
+                         for y in range(h)]).contiguous()
+    return left.to(dev), right.to(dev)
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+def test_remap_on_card(card, channels):
+    """The remap kernel bit for bit against its plain version, with maps
+    that leave the image on every side, two launches alike."""
+    from monogs_tpu_torch.data.undistort import remap, remap_plain
+
+    g = torch.Generator().manual_seed(channels)
+    shape = (37, 53, 3) if channels == 3 else (37, 53)
+    img = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
+    ys, xs = torch.meshgrid(torch.arange(41.0), torch.arange(59.0),
+                            indexing="ij")
+    mx = xs * 1.1 - 4 + 0.7 * torch.rand(xs.shape, generator=g)
+    my = ys * 1.05 - 3 + 0.7 * torch.rand(ys.shape, generator=g)
+    want = remap_plain(img, mx, my)
+    a = remap(img.to(card), mx.to(card), my.to(card))
+    b = remap(img.to(card), mx.to(card), my.to(card))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(120, 200), (33, 65)])
+def test_sgbm_on_card(card, shape):
+    """SGBM's three launches bit for bit against the plain version (a row
+    narrower than the window and a width of numDisparities + 1 too)."""
+    from monogs_tpu_torch.data.stereo import sgbm, sgbm_plain
+
+    left, right = textured_pair(card, *shape)
+    want = sgbm_plain(left.cpu(), right.cpu())
+    a, b = sgbm(left, right), sgbm(left, right)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+    if shape == (120, 200):
+        assert float((want >= 0).float().mean()) > 0.3
+
+
+@pytest.mark.parametrize("sample", ["smooth", "sharp"])
+def test_nvjpeg_on_card(card, sample):
+    """nvJPEG's planes through the ycc_rgb kernel within 3 LSB of
+    libjpeg's pixels (mean) on chip_smoke's embedded JPEGs, and the
+    encoder's round trip of the smooth one (the sharp one is random
+    colour, which a 4:2:0 encoder cannot keep: libjpeg's own round trip
+    of it is 47 LSB off)."""
+    import numpy as np
+
+    import chip_smoke
+    from monogs_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    data, want = chip_smoke.jpeg_sample(sample)
+    got = decode_jpeg(data, card)
+    assert got.is_cuda and got.shape == want.shape
+    assert np.abs(got.cpu().numpy().astype(int) - want).mean() < 3.0
+    if sample == "sharp":
+        return
+    again = decode_jpeg(encode_jpeg(torch.from_numpy(want).to(card)), card)
+    assert (again.int() - torch.from_numpy(want).to(card).int()).abs().float(
+    ).mean() < 3.0
+
+
+def test_ycc_rgb_kernel_matches_plain(card):
+    """The upsampling and colour conversion kernel equals its plain
+    version bit for bit at every subsampling it takes, odd sizes and the
+    replicated narrow widths included."""
+    from monogs_tpu_torch.data.jpeg import ycc_to_rgb, ycc_to_rgb_plain
+
+    g = torch.Generator().manual_seed(0)
+    for h, w in [(680, 1200), (35, 51), (9, 3), (6, 2)]:
+        y = torch.randint(0, 256, (h, w), generator=g, dtype=torch.uint8)
+        for factors in [(2, 2), (1, 2), (1, 1), None]:
+            planes = [y]
+            if factors is not None:
+                sy, sx = factors
+                planes += [torch.randint(0, 256, (-(-h // sy), -(-w // sx)),
+                                         generator=g, dtype=torch.uint8)
+                           for _ in range(2)]
+            got = ycc_to_rgb(*(p.to(card) for p in planes))
+            assert torch.equal(got.cpu(), ycc_to_rgb_plain(*planes))
+
+
+def test_png_unfilter_native_on_card_machine(card):
+    """The host unfilter (built with the kernels) against the numpy one."""
+    import numpy as np
+
+    from monogs_tpu_torch.data import png
+
+    rng = np.random.default_rng(0)
+    for img in (rng.integers(0, 256, (31, 45, 3), dtype=np.uint8),
+                rng.integers(0, 65536, (20, 7), dtype=np.uint16)):
+        data = png.encode_png(img)
+        assert np.array_equal(png.decode_png(data, native=True), img)
+        w, h, depth, ctype, raw = png.parse(data)
+        bpp = (3 if ctype == 2 else 1) * depth // 8
+        # every filter type: rows re-filtered by type (y % 5)
+        rows = np.frombuffer(raw, np.uint8).reshape(h, -1).copy()
+        rows[:, 0] = np.arange(h) % 5
+        raw = rows.tobytes()
+        assert np.array_equal(png.unfilter_native(raw, h, w * bpp, bpp),
+                              png.unfilter_plain(raw, h, w * bpp, bpp))

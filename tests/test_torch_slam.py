@@ -367,7 +367,7 @@ def test_backend_failure_surfaces(monkeypatch):
     (lambda c: c["Results"].update(use_gui=True), "GUI slice"),
     (lambda c: c.update(Parallel={"n_devices": 2}), "parallel slice"),
     (lambda c: c.update(Parallel={"gauss_devices": 2}), "parallel slice"),
-    (lambda c: c["Dataset"].update(type="tum"), "data-loader slice"),
+    (lambda c: c["Dataset"].update(type="realsense"), "GUI slice"),
 ])
 def test_unported_configs_raise(change, match):
     cfg = trimmed_config()
