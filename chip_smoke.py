@@ -9,8 +9,10 @@ It needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 JAX. Phases, each of which exits non-zero on failure:
 
 1. build the kernels from ``monogs_tpu_torch/csrc`` (one nvcc for sm_90a
-   per source, started together) and print the build time and the card's
-   name and power limit;
+   per source, started together) and print the build time, the build
+   record (``utils/compile_stats.py``: the libraries built, their
+   seconds, and those reused from disk) and the card's name and power
+   limit;
 2. kernel phase: run each kernel on the card at the shapes of its path
    (640x480 in 16 px tiles, k_fine 96: a 12 % tile subset for tracking, 320
    and all 1280 tiles for mapping, plus one RGB-D mapping call at the
@@ -66,7 +68,22 @@ JAX. Phases, each of which exits non-zero on failure:
    widths, cut to 16 frames and fewer BA / refinement iterations (see
    ``SLAM_RUNS``): keyframe ATE, PSNR/SSIM before and after refinement,
    the stage split, and kernels #1-#6 launched;
-10. files path: SLAM from files through the port's loaders. The stock
+10. diag path (observability, on the tracking path's scene): (a) one
+   frame of the mono chain cut at each of ``track_frame``'s stages
+   (build, lists, fo, so_prep, so, final_nc, full), checked as the CPU
+   test checks them, with each stage's least time over 5 interleaved
+   rounds (and the median) and the consecutive deltas; (b) the device
+   trace of one full frame that the tracking path took
+   (``utils/profiling.trace``), its summary and file size; (c) ``utils/roofline.py``'s
+   ``program_cost`` and ``classify`` of one frame and of one BA iteration;
+   (d) ``slam/experiments.py``'s check_grad and lm_sweep on "xla", and
+   kfine_vs_backward_subsample and pool_vs_fresh_sampling on
+   "pallas_lists", each with the kernels it launched; (e) the GUI on the
+   card: a packet of the scene, /stats, /view.jpg, /depth.jpg and
+   /map3d.jpg fetched over localhost, the view decoded and held to the
+   render, then the SLAM path's "rgbd" run once more with ``use_gui``
+   (its poses bit for bit those of the run without the GUI);
+11. files path: SLAM from files through the port's loaders. The stock
    synthetic sequence's first 16 frames, rendered at each config's own
    calibration and width, are written in the layout of
    configs/rgbd/tum/fr1_desk.yaml (640x480 PNG, distorted: the raw frames
@@ -92,7 +109,8 @@ Each path's launch counters are zeroed just before it and read just after.
 
 Output, one JSON object per line: each path's metrics, then
 ``{"kernels": [...]}`` (each kernel's time, plain time, bound, error and
-launches on its path, and on ``slam_path`` and ``files_path``; ``ms`` is
+launches on its path, and on ``slam_path``, ``diag_path`` and
+``files_path``; ``ms`` is
 the CUDA-event time of one call on an idle card, which also counts the
 card's wait for the host, and ``device_ms`` the device time of one call
 with the card kept busy), then
@@ -110,158 +128,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+TRACE_DIR = ROOT / "build" / "traces"   # profiling.trace's files
 
-# One H100 SXM at its full 700 W limit (NVIDIA's data sheet): HBM bandwidth
-# and the float32 rate outside the tensor cores. A card set below 700 W is
-# slower; the power limit is printed beside every number.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-TF32_FLOPS_PER_S = 495e12   # dense, tensor cores
-
-
-def kernel_tc_ops(name, n):
-    """The part of ``kernel_ops`` that the kernel does as TF32 products on
-    the tensor cores: the fused steps' row sums, that is the feature sums
-    (6 per contributing pair for r, g, b; 8 with a depth column, the
-    mapping step's or the first-order step's depth chain) and the six
-    conic moments and their sums (12 per live pair, 24 with the depth
-    chain). Counted once, as the function needs them: the split into TF32
-    big parts and remainders is the design's cost. The blend VJP's row
-    sums run on the tensor cores too (since its redesign), but its bound
-    stays the one of its function's FP32 operations, so that it compares
-    with its earlier measurements."""
-    live, contrib = n["live"], n["contrib"]
-    return {
-        "fo_grad": 6 * contrib + 12 * live,
-        "fo_grad_rgbd": 8 * contrib + 24 * live,
-        "map_grad": 6 * contrib + 12 * live,
-        "map_grad_rgbd": 8 * contrib + 12 * live,
-        "map_grad_madd": 6 * contrib + 12 * live,
-        "map_grad_madd_rgbd": 8 * contrib + 12 * live,
-    }.get(name.split("@")[0], 0)
-
-
-def kernel_ops(name, n, e_exp):
-    """Float32 operations a kernel's function needs on this run's rows.
-
-    ``n`` counts the (row, pixel) pairs of each kind (``pair_counts``);
-    ``e_exp`` is one expf's float32 operations (``expf_ops``). Each kind of
-    pair is charged only the work the function does on it:
-
-    - walked (every pair up to the pixel's terminating row): dx, dy (2), the
-      log-alpha quadratic (10), two clamps (2), expf, the two alpha tests (2);
-    - ok (walked and passing the alpha test): 1 - a, T(1 - a), its test (3);
-    - contrib (ok and before termination): w = aT and the five weighted sums
-      (10); counts add one increment. The reverse pass and the tangents are
-      zero on every other pair: a pair that fails the alpha test has a = 0,
-      and the suffix sum is 0 from the terminating row on;
-    - fused first-order step, per contributing pair: wbar (6), the suffix
-      (2) and three colour sums (6); where a < 0.99 (live), also obar (1),
-      abar (2), sbar (1) and six conic moments and their sums (12). The
-      RGB-D chain adds wbar, its suffix and the depth sum (5), and on live
-      pairs obar, abar, sbar and the moments (16);
-    - jvp8, per contributing pair and pose tangent: w_t's log-T term (2) and
-      five tangent sums (17); on live pairs also s_t (10), alpha_t (1), the
-      carry of log T (2) and w_t's alpha term (2), plus the shared monomials
-      and 1 / (1 - a) once (12);
-    - the other reverse kernels, per contributing pair: wbar over the
-      output columns with a cotangent (a multiply each and the adds
-      between: 5 for the mapping step's r, g, b; 7 with its depth; 8 for
-      the VJP's r, g, b, depth and acc), the suffix (2) and a sum of w g
-      per feature column (6 or 8); live pairs add the same 16 as above.
-
-    - the macro-list kernels (``macro_*``, ``compact_*``) walk only the rows
-      that enter a tile, with the list kernels' costs per pair, and test the
-      box of every valid macro row (below its list's count) against every
-      fine tile of its macro: four adds and four compares (8, ``box_tests``
-      pairs). Their VJPs also add up each row's cotangent over the fine
-      tiles it entered: 16 adds for each such (row, fine tile) beyond the
-      row's first (``ft_adds``). The index scan and the per-fine-tile
-      partials are this design's cost, not the function's, and are left
-      out.
-
-    - the mapping step's ``madd`` variant does the mapping step's work;
-      its one add per staged row is work per row.
-
-    Work per row or per pixel (the row cotangents, the residual), under 2 %
-    of the total at these shapes, is left out: a lower bound.
-    ``kernel_tc_ops`` says which of these operations the kernel does on the
-    tensor cores.
-    """
-    fwd = (16 + e_exp) * n["walked"] + 3 * n["ok"] + 10 * n["contrib"]
-    live, dead = n["live"], n["contrib"] - n["live"]
-    fo = fwd + 30 * live + 14 * dead
-    box = 8 * n.get("box_tests", 0)
-    bwd = fwd + 34 * live + 18 * dead
-    return {
-        "macro_fwd": fwd + box,
-        "compact_fwd": fwd + box,
-        "macro_bwd": bwd + box + 16 * n.get("ft_adds", 0),
-        "compact_bwd": bwd + box + 16 * n.get("ft_adds", 0),
-        "fwd": fwd,
-        "fwd_counts": fwd + n["contrib"],
-        "fo_grad": fo,
-        "fo_grad_rgbd": fo + 21 * live + 5 * dead,
-        "jvp8": fwd + (12 + 6 * 34) * live + 6 * 19 * dead,
-        "map_grad": fwd + 29 * live + 13 * dead,
-        "map_grad_rgbd": fwd + 33 * live + 17 * dead,
-        "map_grad_madd": fwd + 29 * live + 13 * dead,
-        "map_grad_madd_rgbd": fwd + 33 * live + 17 * dead,
-        "bwd": bwd,
-    }[name.split("@")[0]]
-
-
-EXPF_PROBE = r"""
-extern "C" __global__ void probe_exp(const float* x, float* y) {
-  y[threadIdx.x] = expf(x[threadIdx.x]);
-}
-extern "C" __global__ void probe_copy(const float* x, float* y) {
-  y[threadIdx.x] = x[threadIdx.x];
-}
-"""
-
-
-def expf_ops():
-    """Float32 operations of one expf as the kernels are compiled: the SASS
-    of a probe kernel that computes expf, less that of one that copies,
-    with FFMA counted as two and every other F* instruction as one. Also
-    returns the SASS instruction counts of the difference."""
-    import re
-
-    from monogs_tpu_torch import _build
-
-    nvcc = Path(_build.nvcc_path())
-    cuobjdump = nvcc.parent / "cuobjdump"
-    check(cuobjdump.is_file(), f"no cuobjdump beside {nvcc}")
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.BUILD_DIR / "expf_probe.cu"
-    cubin = src.with_suffix(".cubin")
-    src.write_text(EXPF_PROBE)
-    flags = [f for f in _build.NVCC_FLAGS
-             if f not in ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")]
-    for cmd in ([str(nvcc), *flags, "-cubin", "-o", str(cubin), str(src)],
-                [str(cuobjdump), "-sass", str(cubin)]):
-        out = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
-        check(out.returncode == 0, f"{cmd[0]} failed: {out.stderr}")
-    counts, fn = {}, None
-    for line in out.stdout.splitlines():
-        m = re.search(r"Function : (\w+)", line)
-        if m:
-            fn = counts.setdefault(m.group(1), {})
-            continue
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
-                      line)
-        if m and fn is not None:
-            fn[m.group(1)] = fn.get(m.group(1), 0) + 1
-    check({"probe_exp", "probe_copy"} <= counts.keys(),
-          "probe kernels missing from the SASS")
-    diff = {op: c - counts["probe_copy"].get(op, 0)
-            for op, c in counts["probe_exp"].items()
-            if c != counts["probe_copy"].get(op, 0)}
-    ops = sum((2 if op == "FFMA" else 1) * c for op, c in diff.items()
-              if op.startswith("F") and c > 0)
-    check(ops > 0, f"no float32 instructions in expf's SASS: {diff}")
-    return ops, diff
+# The H100's peaks, each kernel's analytic operations and its bound:
+# monogs_tpu_torch/utils/roofline.py (imported once the checkout's package
+# is on the path, see import_port).
 
 
 # Each kernel, the TPU kernel it replaces and the tolerance it is held to
@@ -555,19 +426,15 @@ def import_port():
 
 def counters():
     """The launch counters of the kernel modules."""
-    from monogs_tpu_torch.data import jpeg, stereo, undistort
-    from monogs_tpu_torch.render import blend_lists as bl
-    from monogs_tpu_torch.render import blend_macros as bm
+    from monogs_tpu_torch.utils import roofline
 
-    return (bl.LAUNCHES, bm.LAUNCHES, undistort.LAUNCHES, stereo.LAUNCHES,
-            jpeg.LAUNCHES)
+    return roofline.launch_counters()
 
 
 def all_launches():
-    out = {}
-    for c in counters():
-        out.update(c)
-    return out
+    from monogs_tpu_torch.utils import roofline
+
+    return roofline.all_launches()
 
 
 def reset_launches():
@@ -780,10 +647,6 @@ def pair_counts(torch, bl, d, tx0, ty0, pmat, W, H, row_mask=None):
                 live=int((f["contrib"] & (f["alpha"] < 0.99)).sum()))
 
 
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
-
-
 def per_column_err(torch, got, want, frac, rtol=1e-3):
     """(max abs error, ok) under |got - want| <= rtol |want| + frac * the
     last-axis column's largest |want|."""
@@ -833,6 +696,8 @@ def record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
     """Time kernel ``name`` (``fn``) and its plain version, compute its
     bound from this run's pairs and bytes, and add its entry. ``name`` may
     carry a shape tag after "@"."""
+    from monogs_tpu_torch.utils import roofline
+
     kind = name.split("@")[0]
     torch.cuda.synchronize()
     check(ok or not strict,
@@ -841,19 +706,15 @@ def record_kernel(torch, entries, name, fn, plain, err, ok, in_bytes,
     ms = cuda_ms(torch, fn)
     device_ms = kernel_ms(torch, fn)
     plain_ms = cuda_ms(torch, plain, reps=plain_reps, warmup=1)
-    ops = kernel_ops(name, pairs, e_exp)
-    tc_ops = kernel_tc_ops(name, pairs)
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = ((ops - tc_ops) / FP32_FLOPS_PER_S
-             + tc_ops / TF32_FLOPS_PER_S) * 1e3
+    b = roofline.kernel_bound(name, pairs, in_bytes + out_bytes, e_exp)
     entries[name] = dict(
         name=name, route="cuda", source=kernel_source(kind),
         replaces=KERNELS[kind][0], launches=0, max_abs_err=err,
         tol=KERNELS[kind][1], ms=ms, device_ms=device_ms, plain_ms=plain_ms,
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_ms=b["bound_ms"], bound_by=b["bound_by"],
         library_ms=None, within_tol=ok, pairs=pairs,
-        bytes=in_bytes + out_bytes, ops=ops, tc_ops=tc_ops, expf_ops=e_exp)
+        bytes=in_bytes + out_bytes, ops=b["ops"], tc_ops=b["tc_ops"],
+        expf_ops=e_exp)
     log(f"{name}: {ms:.4f} ms (device {device_ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms), bound "
         f"{entries[name]['bound_ms']:.4f} ms by "
@@ -896,6 +757,7 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
     ``tag`` is appended to each entry's name (another ``cfg.tile``)."""
     from monogs_tpu_torch.render import blend_lists as bl
     from monogs_tpu_torch.render import renderer as rr
+    from monogs_tpu_torch.utils import roofline
 
     dev = pose.device
     W, H = intr.width, intr.height
@@ -930,7 +792,8 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
     err, ok = outs_err(torch, got, want)
     record("fwd", lambda: bl.blend_lists(d_full, tx0, ty0, pmat, W, H),
            lambda: bl.blend_lists_plain(d_full, tx0, ty0, pmat, W, H),
-           err, ok, nbytes(d_full, *inputs), nbytes(got), pairs_full)
+           err, ok, roofline.nbytes(d_full, *inputs), roofline.nbytes(got),
+           pairs_full)
 
     # 2. forward blend with per-row counts
     got, cnt = bl.blend_lists_counts(d_full, tx0, ty0, pmat, W, H)
@@ -947,7 +810,8 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
     record("fwd_counts",
            lambda: bl.blend_lists_counts(d_full, tx0, ty0, pmat, W, H),
            lambda: bl.blend_lists_counts_plain(d_full, tx0, ty0, pmat, W, H),
-           err, ok, nbytes(d_full, *inputs), nbytes(got, cnt), pairs_full)
+           err, ok, roofline.nbytes(d_full, *inputs),
+           roofline.nbytes(got, cnt), pairs_full)
     del want, want_c, got, cnt
 
     # 3. fused first-order step, mono and RGB-D
@@ -982,8 +846,8 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
                lambda a=args, g_=gd: bl.fo_grad_lists(*a, gtd_t=g_, **fo),
                lambda a=args, g_=gd: bl.fo_grad_lists_plain(*a, gtd_t=g_,
                                                             **fo),
-               err, ok, nbytes(d_sub, *sub_in, gd) + 8,
-               nbytes(dd, ddd, sums), pairs_sub)
+               err, ok, roofline.nbytes(d_sub, *sub_in, gd) + 8,
+               roofline.nbytes(dd, ddd, sums), pairs_sub)
         entries[name + tag]["f64_excess"] = ex
     del dd, ddd, sums, pdd, pddd, psums
 
@@ -1008,7 +872,8 @@ def kernel_phase(torch, intr, cfg, tcfg, scene, pose, frame, e_exp,
            lambda: bl.blend_lists_jvp8_plain(d_j, d_tan, txs, tys, pmat,
                                              W, H),
            max(e1, e2), ok1 and ok2 and ex <= TF32_SPLIT_FRAC,
-           nbytes(d_j, d_tan, txs, tys, pmat), nbytes(outs, touts), pairs_j)
+           roofline.nbytes(d_j, d_tan, txs, tys, pmat),
+           roofline.nbytes(outs, touts), pairs_j)
     entries["jvp8" + tag]["f64_excess"] = ex
     return entries
 
@@ -1046,6 +911,7 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
     from monogs_tpu_torch.render import blend_lists as bl
     from monogs_tpu_torch.render import renderer as rr
     from monogs_tpu_torch.render.renderer import TileLists
+    from monogs_tpu_torch.utils import roofline
 
     dev = pose.device
     entries = {}
@@ -1077,7 +943,8 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
     check(float(torch.abs(want).max()) > 0, "bwd: zero row cotangents")
     record("bwd", lambda: bl.blend_lists_vjp(d, tx0, ty0, pmat, g_outs, W, H),
            lambda: bl.blend_lists_vjp_plain(d, tx0, ty0, pmat, g_outs, W, H),
-           err, ok, nbytes(d, tx0, ty0, pmat, g_outs), nbytes(dd),
+           err, ok, roofline.nbytes(d, tx0, ty0, pmat, g_outs),
+           roofline.nbytes(dd),
            pair_counts(torch, bl, d, tx0, ty0, pmat, W, H))
     entries["bwd" + tag]["f64_excess"] = ex
     del dd, want, outs, g_outs
@@ -1152,9 +1019,9 @@ def mapping_kernel_phase(torch, intr, cfg, scene, pose, frame, e_exp,
         record(name, lambda: bl.map_grad_lists(*args, **kw),
                lambda: bl.map_grad_lists_plain(*args, **kw),
                max(err, float(e_s.max())), ok,
-               nbytes(args[0], txf[ts], tyf[ts], pm, gt_t, mask_t, gtd_t,
-                      kw.get("madd")) + 8,
-               nbytes(got, sums),
+               roofline.nbytes(args[0], txf[ts], tyf[ts], pm, gt_t,
+                               mask_t, gtd_t, kw.get("madd")) + 8,
+               roofline.nbytes(got, sums),
                pair_counts(torch, bl, dm, txf[ts], tyf[ts], pm, Wc, Hc))
         entries[name + tag]["f64_excess"] = ex
 
@@ -1284,6 +1151,7 @@ def macro_kernel_phase(torch, intr, cfg, scene, pose, pose2, frame, e_exp,
     the VJPs are held to their plain version in float64 (``f64_excess``).
     ``strict`` as in kernel_phase."""
     from monogs_tpu_torch.render import blend_macros as bm
+    from monogs_tpu_torch.utils import roofline
 
     entries = {}
     for tag, args, geo, kf, gt in macro_cases(torch, intr, cfg, scene, pose,
@@ -1311,7 +1179,8 @@ def macro_kernel_phase(torch, intr, cfg, scene, pose, pose2, frame, e_exp,
             check(float(outs[..., 4].max()) > 0, f"{kind}_fwd{tag}: empty")
             record_kernel(torch, entries, f"{kind}_fwd{tag}", fwd,
                           lambda: fwd_p(*args, *geo, *extra), err, ok,
-                          nbytes(*args), nbytes(outs), pairs, e_exp,
+                          roofline.nbytes(*args), roofline.nbytes(outs),
+                          pairs, e_exp,
                           strict, plain_reps)
             g_outs = l1_cotangent(torch, outs, gt, W, H)
             dd, dd2 = vjp(g_outs), vjp(g_outs)
@@ -1327,7 +1196,8 @@ def macro_kernel_phase(torch, intr, cfg, scene, pose, pose2, frame, e_exp,
                           lambda: vjp(g_outs),
                           lambda: vjp_p(*args, g_outs, *geo, *extra), err,
                           ok and ex <= TF32_SPLIT_FRAC,
-                          nbytes(*args, g_outs), nbytes(dd), pairs, e_exp,
+                          roofline.nbytes(*args, g_outs),
+                          roofline.nbytes(dd), pairs, e_exp,
                           strict, plain_reps)
             entries[f"{kind}_bwd{tag}"]["f64_excess"] = ex
             del outs, g_outs, dd, dd2, want
@@ -1429,68 +1299,21 @@ def main_path(torch, intr, cfg, tcfg, scene, poses_fn):
 
 
 def profile_frame(torch, scene, frames, poses, intr, cfg, tcfg):
-    """Where one tracked mono frame's time goes: torch.profiler over the
-    frame (after the chain, so everything is warm), device time of the
-    kernels summed by class. The profiler slows the host, so wall_ms is a
-    profiled frame's; device_busy_ms is the sum of kernel times (one
-    stream, so kernels do not overlap)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where one tracked mono frame's time goes: ``profiling.trace`` over
+    the frame (after the chain, so everything is warm), its summary
+    (device time of the kernels by class, launches, the idle share). The
+    profiler slows the host, so wall_ms is a profiled frame's."""
     from monogs_tpu_torch.slam.tracking import track_frame
+    from monogs_tpu_torch.utils import profiling
 
     gen = torch.Generator(device=poses[0].device).manual_seed(0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with profiling.trace(str(TRACE_DIR / "tracking_frame"),
+                         device=poses[0].device) as tr:
         r = track_frame(scene, frames[2], poses[1], 1.0, 0.0, gen, intr, cfg,
                         tcfg)
-        torch.cuda.synchronize()
-        wall_ms = 1000.0 * (time.perf_counter() - t0)
-    t = device_time(prof)
-    if t["device_busy_ms"] == 0:
-        return dict(wall_ms=wall_ms, device_busy_ms="not measured")
-    return dict(wall_ms=wall_ms, iterations=r.fo_iters + r.so_iters,
-                device_idle_share=max(0.0, 1.0 - t["device_busy_ms"]
-                                      / wall_ms), **t)
-
-
-LIST_BLEND = ("::fwd_kernel<", "::fo_grad_kernel<", "::jvp8_kernel(",
-              "::map_grad_kernel<", "::map_grad_madd_kernel<",
-              "::bwd_kernel(")
-MACRO_BLEND = ("macro_fwd_kernel", "macro_bwd_kernel", "sum_fine_tiles")
-
-
-def device_time(prof):
-    """Kernel launches and device time of a profile, summed by class."""
-    from torch.autograd import DeviceType
-
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        kernels[e.key] = (us / 1000.0, e.count)
-    busy = sum(ms for ms, _ in kernels.values())
-    classes = (("macro_blend", MACRO_BLEND), ("list_blend", LIST_BLEND),
-               ("sort", ("sort", "radix", "Sort")),
-               ("elementwise", ("elementwise",)),
-               ("reduce", ("reduce",)),
-               ("gather_scatter_index", ("index", "gather", "scatter")))
-    by_class = {name: 0.0 for name, _ in classes}
-    by_class["other"] = 0.0
-    for k, (ms, _) in kernels.items():
-        cls = next((n for n, keys in classes if any(x in k for x in keys)),
-                   "other")
-        by_class[cls] += ms
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    return dict(
-        device_busy_ms=busy,
-        kernel_launches=sum(c for _, c in kernels.values()),
-        device_ms_by_class=by_class,
-        top=[dict(name=k[:80], ms=ms, count=c) for k, (ms, c) in top])
+    return dict(iterations=r.fo_iters + r.so_iters,
+                trace=str(Path(tr.path).relative_to(ROOT)),
+                file_bytes=Path(tr.path).stat().st_size, **tr.summary)
 
 
 # ------------------------------------------------------------ mapping path
@@ -1653,10 +1476,9 @@ def densify_check(torch, m, gen):
 def mapping_path(torch, intr, cfg, scene, frames, poses):
     """Drive the port's mapping on the card (see the module docstring);
     returns (metrics, launches)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from monogs_tpu_torch.models import gaussian_map as gm
     from monogs_tpu_torch.slam import mapping as mp
+    from monogs_tpu_torch.utils import profiling
 
     dev = scene.xyz.device
     hyper = gm.MapHyper()
@@ -1781,13 +1603,10 @@ def mapping_path(torch, intr, cfg, scene, frames, poses):
     # a 1-iteration call, halved
     prof_ = {}
     for n in (1, 3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        with profiling.trace(str(TRACE_DIR / f"mapping_{n}"),
+                             device=dev) as tr:
             run_map(n, 100)
-            wall = 1000.0 * (time.perf_counter() - t0)
-        prof_[n] = dict(wall_ms=wall, **device_time(prof))
+        prof_[n] = tr.summary
     a, b = prof_[1], prof_[3]
     busy = (b["device_busy_ms"] - a["device_busy_ms"]) / 2
     wall = (b["wall_ms"] - a["wall_ms"]) / 2
@@ -1808,11 +1627,10 @@ def mapping_path(torch, intr, cfg, scene, frames, poses):
 def macro_path(torch, intr, cfg, scene, frames, poses):
     """Drive the unfused mapping branch on the macro-list backends (the
     module docstring's phase 5); returns (metrics, launches)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from monogs_tpu_torch.models import gaussian_map as gm
     from monogs_tpu_torch.render import render
     from monogs_tpu_torch.slam import mapping as mp
+    from monogs_tpu_torch.utils import profiling
 
     dev = scene.xyz.device
     hyper = gm.MapHyper()
@@ -1926,13 +1744,10 @@ def macro_path(torch, intr, cfg, scene, frames, poses):
                              call_1=syncs[1][0], sites=syncs[3][1])
     prof_ = {}
     for n in (1, 3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
+        with profiling.trace(str(TRACE_DIR / f"macro_{n}"),
+                             device=dev) as tr:
             run_map(n, cfg_p)
-            wall = 1000.0 * (time.perf_counter() - t0)
-        prof_[n] = dict(wall_ms=wall, **device_time(prof))
+        prof_[n] = tr.summary
     p1, p3 = prof_[1], prof_[3]
     busy = (p3["device_busy_ms"] - p1["device_busy_ms"]) / 2
     wall = (p3["wall_ms"] - p1["wall_ms"]) / 2
@@ -2089,8 +1904,9 @@ class FirstFrames:
         return self.ds[idx]
 
 
-def slam_run(torch, name, file, cut, cfg, device):
-    """One SLAM run through ``SLAM(config).run()`` with its metrics."""
+def slam_run(torch, name, file, cut, cfg, device, slams=None):
+    """One SLAM run through ``SLAM(config).run()`` with its metrics; the
+    ``SLAM`` is appended to ``slams`` (when given) before it runs."""
     from monogs_tpu_torch.data import load_dataset
     from monogs_tpu_torch.slam import backend
     from monogs_tpu_torch.slam.runtime import SLAM
@@ -2106,6 +1922,8 @@ def slam_run(torch, name, file, cut, cfg, device):
     save_dir.mkdir(parents=True, exist_ok=True)
     ds = FirstFrames(load_dataset(cfg, device=device), SLAM_FRAMES)
     slam = SLAM(cfg, dataset=ds, save_dir=str(save_dir), device=device)
+    if slams is not None:
+        slams.append(slam)
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2137,7 +1955,8 @@ def slam_run(torch, name, file, cut, cfg, device):
         launches={k: v for k, v in launches.items() if v})
     poses_ok = all(bool(torch.isfinite(f.T).all())
                    for f in fe.cameras.values())
-    return out, launches, poses_ok
+    poses = {i: f.T.detach().clone() for i, f in fe.cameras.items()}
+    return out, launches, poses_ok, poses
 
 
 def slam_path(torch, smi, device="cuda"):
@@ -2146,14 +1965,17 @@ def slam_path(torch, smi, device="cuda"):
     mono.yaml on "first16" (window_size 5: fewer frames fill it, so the
     covisibility prune runs), rgbd_threaded.yaml on both cuts. Each run
     prints one JSON line; its launch counters are zeroed just before it
-    and read just after. Returns the launches summed over the runs."""
-    total = {}
+    and read just after. Returns the launches summed over the runs and the
+    poses of the "rgbd" run (``diag_path`` repeats it with the GUI)."""
+    total, rgbd_poses = {}, None
     for name, file, cut, ate_bound in SLAM_RUNS:
         cfg = slam_config(file, cut)
         if name == "mono":
             cfg["Training"]["window_size"] = 5
-        out, launches, poses_ok = slam_run(torch, name, file, cut, cfg,
-                                           device)
+        out, launches, poses_ok, poses = slam_run(torch, name, file, cut,
+                                                  cfg, device)
+        if name == "rgbd":
+            rgbd_poses = poses
         out["device"] = smi
         print(json.dumps({f"slam_{name}": out}, default=float), flush=True)
         log(f"slam {name}: {out['fps']:.3f} fps, ATE {out['ate']}, "
@@ -2192,7 +2014,397 @@ def slam_path(torch, smi, device="cuda"):
     missing = [k for k in SLAM_KERNELS if not total.get(k)]
     check(device != "cuda" or not missing,
           f"slam path: kernels {missing} never launched")
-    return total
+    return total, rgbd_poses
+
+
+# ------------------------------------------------------------- diag path
+
+DIAG_STAGE_REPS = 5      # rounds of the seven stages; the least is kept
+DIAG_POOL_ITERS = 4      # pool_vs_fresh_sampling: BA iterations each way
+# tracking's kernels on a frame cut at each stage, the experiments'
+# (the reverse pass through the render, BA), the GUI's view
+DIAG_KERNELS = ("fwd", "fwd_counts", "fo_grad", "jvp8", "bwd", "map_grad")
+
+
+def launch_delta(before):
+    now = all_launches()
+    return {k: now[k] - before[k] for k in now if now[k] - before[k]}
+
+
+def diag_stages(torch, scene, frame, T_seed, intr, cfg, tcfg):
+    """(a) one frame cut at each of track_frame's stages, checked as the
+    CPU test checks them (tests/test_torch_profiling.py), each stage's
+    time (synchronised at the cut) and the consecutive deltas. The stages
+    run in DIAG_STAGE_REPS rounds, each round all seven in turn, so that a
+    drift of the host's speed reaches every stage alike; the least time of
+    each stage is its attribution (the host's noise only adds time), the
+    median is kept beside it."""
+    from monogs_tpu_torch.slam.tracking import STAGES, track_frame
+
+    dev = T_seed.device
+    res, times = {}, {stage: [] for stage in STAGES}
+    for _ in range(DIAG_STAGE_REPS):
+        for stage in STAGES:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[stage] = track_frame(scene, frame, T_seed, 1.0, 0.0, gen,
+                                     intr, cfg, tcfg._replace(stage=stage))
+            torch.cuda.synchronize()
+            times[stage].append(1000.0 * (time.perf_counter() - t0))
+    ms = {stage: min(t) for stage, t in times.items()}
+    full = res["full"]
+    for stage in ("build", "lists"):
+        check(bool(torch.equal(res[stage].T, T_seed))
+              and math.isfinite(float(res[stage].last_l1))
+              and res[stage].host_syncs == 1,
+              f"stage {stage}: not the seed pose with one sync")
+    check(res["fo"].fo_iters == full.fo_iters and res["fo"].so_iters == 0
+          and res["so_prep"].fo_iters == full.fo_iters
+          and res["so_prep"].so_iters == 0
+          and math.isfinite(float(res["so_prep"].last_l1))
+          and res["so"].so_iters == full.so_iters,
+          "stage iteration counts: " + ", ".join(
+              f"{k} {r.fo_iters}/{r.so_iters}" for k, r in res.items()))
+    fnc = res["final_nc"]
+    t_err = float(torch.abs(fnc.T - full.T).max())
+    img_err = float(torch.abs(fnc.image - full.image).max())
+    check(t_err <= 1e-6 and img_err <= 1e-5
+          and int(full.n_touched.sum()) > 0
+          and int(fnc.n_touched.sum()) == 0,
+          f"final_nc against full: pose {t_err}, image {img_err}, counts "
+          f"{int(full.n_touched.sum())} / {int(fnc.n_touched.sum())}")
+    names = list(STAGES)
+    delta = {names[0]: ms[names[0]]}
+    delta.update({b: ms[b] - ms[a] for a, b in zip(names, names[1:])})
+    return dict(ms=ms, delta_ms=delta, reps=DIAG_STAGE_REPS,
+                median_ms={k: statistics.median(t) for k, t in times.items()},
+                fo_iters=full.fo_iters, so_iters=full.so_iters,
+                host_syncs=full.host_syncs,
+                final_nc_pose_err=t_err, final_nc_image_err=img_err)
+
+
+def diag_roofline(torch, intr, cfg, tcfg, scene, frames, poses, entries):
+    """(c) program_cost and classify of one tracked frame and of one BA
+    iteration (the mapping path's window at tile_frac 0.25; a 3-iteration
+    call less a 1-iteration call, halved, for both the cost and the time).
+    The kernels' operations and bytes per launch are their kernel-phase
+    entries' at the main path's shapes."""
+    from monogs_tpu_torch.models import gaussian_map as gm
+    from monogs_tpu_torch.slam import mapping as mp
+    from monogs_tpu_torch.slam.tracking import track_frame
+    from monogs_tpu_torch.utils import roofline
+
+    per_launch = {k: dict(ops=entries[k]["ops"], tc_ops=entries[k]["tc_ops"],
+                          bytes=entries[k]["bytes"])
+                  for k in ("fwd", "fwd_counts", "fo_grad", "jvp8",
+                            "map_grad")}
+    dev = poses[0].device
+
+    def frame():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return track_frame(scene, frames[2], poses[1], 1.0, 0.0, gen, intr,
+                           cfg, tcfg)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    _, c_frame = roofline.program_cost(frame, per_launch=per_launch)
+    t_frame = statistics.median(timed(frame) for _ in range(3))
+    m0, cams = map_window(torch, scene, frames, poses)
+    mc = mp.MapConfig(monocular=True, window_size=8, pose_window=5,
+                      tile_frac=0.25)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def ba(n):
+        return mp.map_iters(m0, cams, n, 100, gen, intr, cfg, mc,
+                            gm.MapHyper())
+
+    ba(1)
+    _, c1 = roofline.program_cost(ba, 1, per_launch=per_launch)
+    _, c3 = roofline.program_cost(ba, 3, per_launch=per_launch)
+    c_it = {k: (c3[k] - c1[k]) / 2 for k in ("flops", "tc_flops", "bytes",
+                                             "dense_flops", "kernel_flops")}
+    c_it["launches"] = {k: (c3["launches"][k] - c1["launches"].get(k, 0)) / 2
+                        for k in c3["launches"]}
+    c_it["uncounted"] = c3["uncounted"]
+    t_it = (statistics.median(timed(lambda: ba(3)) for _ in range(3))
+            - statistics.median(timed(lambda: ba(1)) for _ in range(3))) / 2
+    out = {}
+    for name, c, t in (("frame", c_frame, t_frame),
+                       ("ba_iteration", c_it, t_it)):
+        k = roofline.classify(c["flops"], c["bytes"], t,
+                              tc_flops=c["tc_flops"])
+        log(roofline.fmt(f"roofline {name}", k))
+        out[name] = dict(cost={x: v for x, v in c.items() if x != "caveat"},
+                         classify=k)
+    out["caveat"] = c_frame["caveat"]
+    check(out["frame"]["cost"]["kernel_flops"] > 0
+          and out["ba_iteration"]["cost"]["kernel_flops"] > 0,
+          "roofline: no kernel operations counted")
+    return out
+
+
+def diag_experiments(torch, intr, cfg, scene, frames, poses):
+    """(d) four of slam/experiments.py's functions at 640x480: check_grad
+    and lm_sweep on "xla" (forward mode has no rule through the kernels),
+    kfine_vs_backward_subsample on "pallas_lists" (k_fine 256 against 96)
+    and pool_vs_fresh_sampling on the mapping path's window (the fused
+    branch, DIAG_POOL_ITERS iterations each way), each with the kernels it
+    launched."""
+    from monogs_tpu_torch.models import gaussian_map as gm
+    from monogs_tpu_torch.ops import losses
+    from monogs_tpu_torch.render import render
+    from monogs_tpu_torch.slam import experiments as ex
+    from monogs_tpu_torch.slam import mapping as mp
+    from monogs_tpu_torch.slam.tracking import TrackConfig
+
+    dev = poses[0].device
+    tcfg = TrackConfig(monocular=True, stack_dim=16, sketch_dim=64)
+    xla = cfg._replace(backend="xla")
+    frame, T = frames[2], poses[1]
+    out = {}
+
+    def part(name, fn, view=lambda r: r):
+        """Run experiment ``name``, keep ``view`` of its result, its seconds
+        and the kernels it launched."""
+        before = all_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(result=view(r), seconds=time.perf_counter() - t0,
+                         launches=launch_delta(before))
+        log(f"experiment {name}: {json.dumps(out[name], default=float)}")
+        return r
+
+    diff, SJ = part("check_grad", lambda: ex.check_grad(
+        scene, frame, T, intr, xla, tcfg,
+        torch.Generator(device=dev).manual_seed(1), atol=math.inf),
+        lambda r: dict(max_abs_diff=r[0], sj_max=float(torch.abs(r[1]).max()),
+                       shape=list(r[1].shape)))
+    sj_max = out["check_grad"]["result"]["sj_max"]
+    # forward mode in batches of 4 against one tangent at a time: the same
+    # float32 ops, reassociated by the batched products
+    check(0 < sj_max and diff <= 1e-4 * max(1.0, sj_max),
+          f"check_grad: SJ differs by {diff} (largest |SJ| {sj_max})")
+    with torch.no_grad():
+        r0 = render(scene, T, intr, xla._replace(with_n_touched=False))
+        start = float(torch.sum(torch.abs(losses.tracking_residual_rgb(
+            r0.image, frame.gt_image, r0.opacity, frame.mapping_mask,
+            torch.ones((), device=dev), torch.zeros((), device=dev)))))
+    lm = part("lm_sweep", lambda: ex.lm_sweep(
+        scene, frame, T, intr, xla, tcfg,
+        torch.Generator(device=dev).manual_seed(1)))
+    out["lm_sweep"]["start_l1"] = start
+    check(all(math.isfinite(v["loss"]) for v in lm.values())
+          and min(v["loss"] for v in lm.values()) < start,
+          f"lm_sweep: no damping lowers the L1 {start}: {lm}")
+    kf = part("kfine_vs_backward_subsample",
+              lambda: ex.kfine_vs_backward_subsample(
+                  scene, frame, T, intr, cfg, tcfg,
+                  torch.Generator(device=dev).manual_seed(4),
+                  k_fine_full=256, k_fine_trunc=cfg.k_fine))
+    check(kf["cos_trunc_pose"] > 0.9 and kf["cos_sub_pose"] > 0.9
+          and {"fwd", "bwd"} <= out["kfine_vs_backward_subsample"][
+              "launches"].keys(),
+          f"kfine_vs_backward_subsample: {kf}, launches "
+          f"{out['kfine_vs_backward_subsample']['launches']}")
+    m0, cams = map_window(torch, scene, frames, poses)
+    mc = mp.MapConfig(monocular=True, window_size=3, pool_size=2,
+                      tile_frac=0.25, gaussian_update_every=10_000,
+                      gaussian_reset=10_000, densify_from_iter=10_000)
+    pool = part("pool_vs_fresh_sampling", lambda: ex.pool_vs_fresh_sampling(
+        m0, cams, intr, cfg, mc, gm.MapHyper(),
+        torch.Generator(device=dev).manual_seed(5),
+        n_iters=DIAG_POOL_ITERS, window=3, pool=2, chunk=2))
+    check(pool["staged_l1"] < pool["start_l1"]
+          and pool["fresh_l1"] < pool["start_l1"]
+          and out["pool_vs_fresh_sampling"]["launches"].get("map_grad", 0)
+          == 2 * DIAG_POOL_ITERS * 5,
+          f"pool_vs_fresh_sampling: {pool}, launches "
+          f"{out['pool_vs_fresh_sampling']['launches']}")
+    return out
+
+
+def http_get(port, path, timeout=120):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://localhost:{port}{path}",
+                                timeout=timeout) as r:
+        return r.read(), r.headers.get("Content-Type")
+
+
+def diag_gui(torch, intr, cfg, scene, T, slam_poses):
+    """(e) the GUI on the card: a packet of this scene's map at pose T,
+    its /stats, /view.jpg, /depth.jpg and /map3d.jpg fetched over
+    localhost, /view.jpg decoded (nvJPEG) and held to the render at T;
+    then slam_path's "rgbd" run once more with use_gui (the GUI polled
+    while it runs), whose poses must equal the run's without the GUI bit
+    for bit."""
+    import queue
+    import threading
+
+    from monogs_tpu_torch.data.jpeg import decode_jpeg
+    from monogs_tpu_torch.gui import GaussianPacket, ParamsGUI, slam_gui
+    from monogs_tpu_torch.gui.gui_utils import CameraMsg, snapshot
+    from monogs_tpu_torch.models import gaussian_map as gm
+    from monogs_tpu_torch.render import render
+
+    dev = T.device
+    n = scene.xyz.shape[0]
+    m = gm.insert(gm.new_map(MAP_CAP, device=dev),
+                  gm.ParamLeaves(scene.xyz, scene.sh, scene.log_scale,
+                                 scene.quat, scene.opa_logit), n, kf_id=0)
+    q_m2v, q_v2m = queue.Queue(), queue.Queue()
+    # port 0: a free port, so that nothing else on the machine answers
+    params = ParamsGUI(q_main2vis=q_m2v, q_vis2main=q_v2m, gaussians=None,
+                       intr=intr, render_cfg=cfg, port=0,
+                       save_dir=str(ROOT / "build" / "diag_gui"), device=dev)
+    th, port = slam_gui.start(params)
+    q_m2v.put(GaussianPacket(gaussians=snapshot(m),
+                             current_frame=CameraMsg(uid=0, T=T),
+                             keyframes=[CameraMsg(uid=0, T=T)]))
+    out = {}
+    try:
+        deadline = time.time() + 60
+        while True:
+            try:
+                stats = json.loads(http_get(port, "/stats", 5)[0])
+                if stats["packets"] >= 1:
+                    break
+            except OSError:
+                pass
+            check(time.time() < deadline, "GUI: no packet served in 60 s")
+            time.sleep(0.1)
+        check(stats["n_gaussians"] == n, f"GUI /stats: {stats}")
+        for path in ("/view.jpg", "/depth.jpg", "/map3d.jpg"):
+            t0 = time.perf_counter()
+            body, ctype = http_get(port, path)
+            out[path] = dict(bytes=len(body), content_type=ctype,
+                             ms=1000.0 * (time.perf_counter() - t0))
+            check(ctype == "image/jpeg" and body[:2] == b"\xff\xd8",
+                  f"GUI {path}: {ctype}, {body[:16]!r}")
+            if path == "/view.jpg":
+                view = decode_jpeg(body, dev)
+        # the render at T (the GUI's pose offset is zero), and the same
+        # image through the GUI's encoder here
+        with torch.no_grad():
+            img = torch.clamp(render(
+                m.render_view(), T, intr, cfg._replace(with_n_touched=False),
+                tau=torch.zeros(6, device=dev)).image, 0.0, 1.0)
+        want = slam_gui._to_u8(img)
+        err = (view.int() - want.int()).abs().float()
+        out["view_lsb_mean"] = float(err.mean())
+        out["view_lsb_max"] = float(err.max())
+        out["view_equals_render_encoded"] = bool(torch.equal(
+            decode_jpeg(slam_gui._encode_jpg(img)[0], dev), view))
+        # JPEG at quality 95, 4:2:0: libjpeg (cv2) at the same quality
+        # loses 0.84 LSB on average on this view
+        check(tuple(view.shape) == tuple(want.shape)
+              and out["view_lsb_mean"] <= 3.0
+              and out["view_equals_render_encoded"],
+              f"GUI /view.jpg against the render: shape "
+              f"{tuple(view.shape)}, mean {out['view_lsb_mean']} LSB, same "
+              f"as the render encoded {out['view_equals_render_encoded']}")
+        out["stats"] = stats
+    finally:
+        q_m2v.put(GaussianPacket(finish=True))
+        th.join(timeout=30)
+    check(not th.is_alive() and params.error is None,
+          f"GUI thread still serving after finish, or failed: "
+          f"{params.error!r}")
+
+    # slam_path's "rgbd" run with the GUI, polled while it runs
+    cfg_s = slam_config("rgbd.yaml", "orbit16")
+    cfg_s["Results"]["use_gui"] = True      # after --eval's override
+    cfg_s["Renderer"]["gui_port"] = 0
+    polled, stop, slams = [], threading.Event(), []
+
+    def poll():
+        while not stop.is_set():
+            port = slams[0].gui_port if slams else None
+            if port is None:     # the run's GUI not bound yet
+                stop.wait(0.1)
+                continue
+            try:
+                body, _ = http_get(port, "/view.jpg", 30)
+                if body[:2] == b"\xff\xd8":
+                    polled.append(len(body))
+            except OSError:
+                pass
+            stop.wait(0.5)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    saved = all_launches()     # slam_run zeroes the counts for its own
+    try:
+        run, launches, poses_ok, poses = slam_run(torch, "rgbd_gui",
+                                                  "rgbd.yaml", "orbit16",
+                                                  cfg_s, "cuda", slams)
+    finally:
+        stop.set()
+        poller.join(timeout=60)
+    restore_launches({k: saved[k] + launches[k] for k in saved})
+    same = (poses.keys() == slam_poses.keys()
+            and all(bool(torch.equal(poses[i], slam_poses[i]))
+                    for i in poses))
+    out["slam_rgbd_gui"] = dict(seconds=run["seconds"], fps=run["fps"],
+                                ate=run["ate"], views_served=len(polled),
+                                poses_bit_identical=same)
+    check(poses_ok and same, "slam with the GUI: poses differ from the run "
+          "without it")
+    check(len(polled) >= 1, "slam with the GUI: no view served during the "
+          "run")
+    return out
+
+
+def diag_path(torch, intr, cfg, tcfg, scene, frames, poses, entries,
+              slam_poses, profile):
+    """Observability and diagnostics on the tracking phase's scene
+    (640x480, 100k Gaussians, "pallas_lists"): (a) a frame cut at each of
+    track_frame's stages, (b) the device trace of one full frame that the
+    tracking path took (``profile``, profiling.trace), (c) the roofline of
+    a frame and of a BA iteration (utils/roofline.py), (d) four
+    experiments (slam/experiments.py), (e) the GUI. Counts are zeroed just
+    before it and read just after (the SLAM run in (e) counts its own,
+    added in). Returns (metrics, launches)."""
+    reset_launches()
+    out, parts = {}, {}
+    before = all_launches()
+    out["stages"] = diag_stages(torch, scene, frames[2], poses[1], intr,
+                                cfg, tcfg)
+    parts["stages"] = launch_delta(before)
+    log(f"diag stages: {json.dumps(out['stages'], default=float)}")
+
+    out["trace"] = profile
+    log(f"diag trace (the tracking path's): "
+        f"{json.dumps(out['trace'], default=float)}")
+    check(out["trace"]["kernel_launches"] > 0
+          and out["trace"]["device_ms_by_class"]["list_blend"] > 0,
+          "diag trace: no list-blend kernel on the device")
+
+    before = all_launches()
+    out["roofline"] = diag_roofline(torch, intr, cfg, tcfg, scene, frames,
+                                    poses, entries)
+    parts["roofline"] = launch_delta(before)
+
+    out["experiments"] = diag_experiments(torch, intr, cfg, scene, frames,
+                                          poses)
+
+    before = all_launches()
+    out["gui"] = diag_gui(torch, intr, cfg, scene, poses[1], slam_poses)
+    parts["gui"] = launch_delta(before)
+    launches = all_launches()
+    out["launches_by_part"] = parts
+    for name in DIAG_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the diag path")
+    return out, launches
 
 
 # ------------------------------------------------------------- files path
@@ -2529,6 +2741,7 @@ def data_kernel_phase(torch, cfgs):
         decode_planes, read_jpeg, ycc_to_rgb, ycc_to_rgb_plain,
     )
     from monogs_tpu_torch.data.undistort import remap, remap_plain
+    from monogs_tpu_torch.utils import roofline
 
     entries, host = {}, {}
 
@@ -2544,7 +2757,7 @@ def data_kernel_phase(torch, cfgs):
         kind = name.split("@")[0]
         check(ok, f"{name}: kernel disagrees with its plain version or "
               f"itself (max abs error {err}; {KERNELS[kind][1]})")
-        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = roofline.bytes_bound_ms(nbytes)
         entries[name] = e = dict(
             name=name, route="cuda", source=kernel_source(kind),
             replaces=KERNELS[kind][0], launches=0, max_abs_err=err,
@@ -2589,6 +2802,16 @@ def data_kernel_phase(torch, cfgs):
     record("ycc_rgb", lambda: ycc_to_rgb(*planes),
            lambda: ycc_to_rgb_plain(*planes),
            4 * planes[0].numel() + 2 * planes[1].numel())
+    # the host's memory rate for the PNG unfilter's bound (one thread, as
+    # the unfilter runs: a row depends on the row above): a memcpy of
+    # 256 MiB between two buffers touched first, best of 5, its bytes read
+    # and written over its time
+    src, dst = bytearray(b"\x01") * (1 << 28), bytearray(1 << 28)
+    host["memcpy 256 MiB"] = min(host_ms(
+        lambda: memoryview(dst).__setitem__(slice(None), src), reps=1)
+        for _ in range(5))
+    rate = 2 * len(src) / (host["memcpy 256 MiB"] / 1e3)
+    del src, dst
     for label, path in (("640x480 RGB", tum.color_paths[0]),
                         ("640x480 16-bit", tum.depth_paths[0]),
                         ("752x480 grey", euroc.color_paths[0]),
@@ -2598,6 +2821,9 @@ def data_kernel_phase(torch, cfgs):
         bpp = {2: 3, 0: 1}[ctype] * depth // 8
         host[f"png_unfilter {label}"] = host_ms(
             lambda: png.unfilter_native(raw, ph, pw * bpp, bpp))
+        # the filtered rows read once, the pixels written once
+        host[f"png_unfilter_bound {label}"] = (
+            1e3 * (len(raw) + ph * pw * bpp) / rate)
         host[f"png_unfilter_plain {label}"] = host_ms(
             lambda: png.unfilter_plain(raw, ph, pw * bpp, bpp), reps=2)
         host[f"png_decode {label}"] = host_ms(
@@ -2880,10 +3106,15 @@ def run(scene_seed):
                       "needs a CUDA card")
     import_port()
     from monogs_tpu_torch import _build
+    from monogs_tpu_torch.utils import roofline
+    from monogs_tpu_torch.utils.compile_stats import CompileStats
 
+    stats = CompileStats.install()
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
+    stats.uninstall()
+    log(f"build record: {stats.summary()}")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -2906,7 +3137,7 @@ def run(scene_seed):
     poses = poses_fn(3, 42)
     frame = render_frames(torch, scene, poses[2:], intr, cfg,
                           with_depth=True)[0][0]
-    e_exp, sass = expf_ops()
+    e_exp, sass = roofline.expf_ops()
     log(f"expf: {e_exp} float32 operations (SASS difference {sass})")
     phase_s = {}
 
@@ -2937,7 +3168,10 @@ def run(scene_seed):
                      scene, frames, chain_poses)
     repro = timed("ba_repro_path", ba_repro_path, intr, cfg, scene, frames,
                   chain_poses)
-    slam_launches = timed("slam_path", slam_path, smi)
+    slam_launches, slam_poses = timed("slam_path", slam_path, smi)
+    diag, diag_launches = timed("diag_path", diag_path, intr, cfg, tcfg,
+                                scene, frames, chain_poses, entries,
+                                slam_poses, summary["profile"])
     files_launches, data_entries = timed("files_path", files_path, smi)
     entries.update(data_entries)
     for name, e in entries.items():
@@ -2954,7 +3188,12 @@ def run(scene_seed):
                               else slam_launches.get(kind, 0))
         e["files_launches"] = (0 if name.endswith("@tile32")
                                else files_launches.get(kind, 0))
+        e["diag_launches"] = (0 if name.endswith("@tile32")
+                              else diag_launches.get(kind, 0))
     summary["build_s"] = build_s
+    summary["build_record"] = dict(built=stats.compiled,
+                                   seconds=stats.build_seconds,
+                                   cache_hits=stats.cache_hits)
     summary["phase_s"] = phase_s
     summary["scene_seed"] = scene_seed
     summary["device"] = smi
@@ -2971,6 +3210,9 @@ def run(scene_seed):
     print(json.dumps({"ab_mapping_path": ab_map}), flush=True)
     print(json.dumps({"ab_tracking_path": ab_track}), flush=True)
     print(json.dumps({"ba_repro_path": dict(repro, device=smi)}), flush=True)
+    print(json.dumps({"diag_path": dict(diag, launches=diag_launches,
+                                        device=smi)}, default=float),
+          flush=True)
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ flags and linked libraries: the CUDA kernels (``*.cu``) by ``nvcc`` for
 compiler, so it builds wherever one is. A library is named after the hash
 of its source, the headers under ``csrc/`` (``*.cuh``, which the sources
 include) and that entry, so an edit to any of them rebuilds it and an
-unchanged library is reused.
+unchanged library is reused. ``BUILT``, ``CACHE_HITS`` and ``BUILD_SECONDS``
+record each build, each reuse of a library already on disk and each
+batch's time (``utils/compile_stats.py`` summarises them).
 Nothing here runs at import time: the CPU-only tests import every module
 of the package without a compiler or a card.
 """
@@ -23,6 +25,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -88,6 +91,12 @@ SOURCES = {
                            flags=tuple(HOST_FLAGS)),
 }
 
+# the build record, in order: (source name, compiler exit code) of each
+# library built, the name of each reused from disk, and the wall seconds
+# of each batch of builds (they run in parallel)
+BUILT: list[tuple[str, int]] = []
+CACHE_HITS: list[str] = []
+BUILD_SECONDS: list[float] = []
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 BUILD_LOG: dict[str, str] = {}
@@ -120,9 +129,11 @@ def build_all(names=None) -> dict[str, Path]:
     names = list(SOURCES) if names is None else list(names)
     with _LOCK:
         jobs = {}
+        t0 = time.perf_counter()
         for name in names:
             out = _lib_path(name)
             if out.exists():
+                CACHE_HITS.append(name)
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -132,6 +143,9 @@ def build_all(names=None) -> dict[str, Path]:
                                            text=True), tmp, out)
         for name, (proc, _, _) in jobs.items():
             BUILD_LOG[name] = proc.communicate()[0]
+            BUILT.append((name, proc.returncode))
+        if jobs:
+            BUILD_SECONDS.append(time.perf_counter() - t0)
         for name, (proc, tmp, out) in jobs.items():
             if proc.returncode != 0:
                 raise RuntimeError(f"build failed for {name}:\n"

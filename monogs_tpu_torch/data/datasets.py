@@ -334,7 +334,7 @@ class EurocDataset(StereoDataset):
 class RealsenseDataset(BaseDataset):
     """Live aligned colour (and depth) from a RealSense camera at fixed
     exposure. Needs pyrealsense2 and a connected camera; the SLAM runtime
-    does not run live mode yet (it arrives with the GUI slice)."""
+    does not run live mode (``runtime.check_supported`` raises)."""
 
     def __init__(self, config, device="cuda"):
         super().__init__(config, device)

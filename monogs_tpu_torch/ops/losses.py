@@ -72,6 +72,26 @@ def tracking_residual_rgb(image, gt_image, opacity, mapping_mask,
     return opacity * (image_ab * mapping_mask - gt_image * mapping_mask)
 
 
+def tracking_loss_scalar_rgb(image, gt_image, opacity, rgb_pixel_mask,
+                             exposure_a, exposure_b):
+    """Mean masked opacity-weighted L1 of the exposed image."""
+    image_ab = apply_exposure(image, exposure_a, exposure_b)
+    return torch.mean(opacity * abs_(image_ab * rgb_pixel_mask
+                                     - gt_image * rgb_pixel_mask))
+
+
+def tracking_loss_scalar_rgbd(image, depth, gt_image, gt_depth, opacity,
+                              rgb_pixel_mask, exposure_a, exposure_b,
+                              alpha: float = 0.95):
+    """alpha * ``tracking_loss_scalar_rgb`` + (1 - alpha) * mean L1 of the
+    depth where gt > 0.01 and opacity > 0.95."""
+    l1_rgb = tracking_loss_scalar_rgb(image, gt_image, opacity,
+                                      rgb_pixel_mask, exposure_a, exposure_b)
+    dm = ((gt_depth > 0.01) & (opacity > 0.95)).to(depth.dtype)
+    l1_depth = abs_(depth * dm - gt_depth * dm)
+    return alpha * l1_rgb + (1 - alpha) * torch.mean(l1_depth)
+
+
 def mapping_loss_rgb(image, gt_image, mapping_mask, exposure_a, exposure_b,
                      initialization: bool = False):
     """Mean masked L1, with exposure unless initialising."""
@@ -100,8 +120,10 @@ def isotropic_reg(scaling, active_mask):
     return torch.sum(dev * m) / denom
 
 
-def get_median_depth(depth, opacity=None, mask=None):
-    """Lower median of the valid rendered depth (d > 0, opacity > 0.95)."""
+def get_median_depth(depth, opacity=None, mask=None, return_std=False):
+    """Lower median of the valid rendered depth (d > 0, opacity > 0.95);
+    with ``return_std`` also (the sample standard deviation of the valid
+    depths, the validity mask shaped as ``depth``)."""
     d = depth.reshape(-1)
     valid = d > 0
     if opacity is not None:
@@ -114,4 +136,12 @@ def get_median_depth(depth, opacity=None, mask=None):
                           min=0)
     # index_select, not sorted_d[med_idx]: a 0-d index tensor would be read
     # back to the host
-    return sorted_d.index_select(0, med_idx.reshape(1))[0]
+    median = sorted_d.index_select(0, med_idx.reshape(1))[0]
+    if not return_std:
+        return median
+    zero = torch.zeros_like(d)
+    mean = torch.sum(torch.where(valid, d, zero)) / torch.clamp(n_valid,
+                                                                min=1)
+    var = (torch.sum(torch.where(valid, (d - mean) ** 2, zero))
+           / torch.clamp(n_valid - 1, min=1))
+    return median, torch.sqrt(var), valid.reshape(depth.shape)

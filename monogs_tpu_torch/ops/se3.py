@@ -136,3 +136,9 @@ def pose_diff(P1, P2):
     dR = P1[:3, :3] @ P2[:3, :3].T
     cos_theta = torch.clamp((torch.trace(dR) - 1.0) / 2.0, -1.0, 1.0)
     return trans, torch.arccos(cos_theta)
+
+
+def relative_pose_error(P1_gt, P2_gt, P1, P2):
+    """(translation distance, rotation angle) between the relative motions
+    P1_gt^-1 P2_gt and P1^-1 P2 of two frame pairs."""
+    return pose_diff(se3_inverse(P1_gt) @ P2_gt, se3_inverse(P1) @ P2)

@@ -64,3 +64,8 @@ def eval_sh(deg: int, sh, dirs):
 def rgb_to_sh(rgb):
     """RGB in [0,1] -> DC SH coefficient."""
     return (rgb - 0.5) / C0
+
+
+def sh_to_rgb(sh):
+    """DC SH coefficient -> RGB (the inverse of ``rgb_to_sh``)."""
+    return sh * C0 + 0.5

@@ -46,6 +46,16 @@ def fov2focal(fov: float, pixels: int) -> float:
     return pixels / (2.0 * math.tan(fov / 2.0))
 
 
+def project_points(p_view, intr: Intrinsics):
+    """Camera-space points [..., 3] -> pixel coordinates (u, v) with the
+    CUDA rasterizer's half-pixel convention (u = fx x / z + cx - 0.5), z
+    clamped at 1e-6."""
+    z = torch.clamp(p_view[..., 2], min=1e-6)
+    u = intr.fx * p_view[..., 0] / z + intr.cx - 0.5
+    v = intr.fy * p_view[..., 1] / z + intr.cy - 0.5
+    return u, v
+
+
 def backproject_pixels(depth, intr: Intrinsics):
     """[H, W] depth -> [H, W, 3] camera-space points, pixel (ix, iy) at
     ((ix - cx) / fx * z, (iy - cy) / fy * z, z) (the Open3D convention the

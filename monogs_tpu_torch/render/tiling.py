@@ -155,3 +155,11 @@ def macro_instance_bin(u, v, radius, valid, n_mx: int, n_my: int, cell: int,
 
     sel = torch.where(vld, enc & (r_pow2 - 1), torch.zeros_like(enc))
     return sel, vld, n_overflow
+
+
+def tile_overlap_mask(mean2d, radius, valid, x0, y0, x1, y1):
+    """Which Gaussians' 3-sigma boxes meet the pixel rect [x0, x1) x [y0, y1)
+    (mean2d [M, 2], radius [M]; the rect spans pixel centres x0..x1-1)."""
+    u, v = mean2d[:, 0], mean2d[:, 1]
+    return (valid & (u + radius >= x0) & (u - radius <= x1 - 1)
+            & (v + radius >= y0) & (v - radius <= y1 - 1))

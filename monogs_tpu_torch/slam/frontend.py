@@ -16,9 +16,14 @@ already tracked and the pipeline hides nothing.
 
 Random draws come from a ``torch.Generator`` seeded with ``seed`` (the JAX
 package's key) or from a ``DrawSource``; the monocular depth noise from a
-numpy generator seeded with ``seed``, as in the JAX package. The GUI
-arrives with its own slice (``SLAM`` raises for ``use_gui``), so no GUI
-packets are sent.
+numpy generator seeded with ``seed``, as in the JAX package.
+
+With the GUI's queues (``q_main2vis``, ``q_vis2main``; ``Results.use_gui``)
+each tracked frame sends a ``GaussianPacket`` (its pose, the window, the
+ground-truth image, the trajectories; every 5th frame also a snapshot of
+the map, copied on the card), and the loop honours the GUI's pause: a
+paused frontend tracks nothing and tells the backend to pause too. The
+GUI only reads: a run with it tracks and maps exactly as one without.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ class FrontEnd:
     def __init__(self, config: dict, dataset, intr: Intrinsics,
                  render_cfg: RenderConfig, tcfg: TrackConfig, frontend_queue,
                  backend_queue, save_dir=None, seed: int = 0, device="cuda",
-                 draws: Optional[DrawSource] = None):
+                 draws: Optional[DrawSource] = None, q_main2vis=None,
+                 q_vis2main=None):
         self.config = config
         self.dataset = dataset
         self.intr = intr
@@ -64,6 +70,11 @@ class FrontEnd:
         self.backend_queue = backend_queue
         self.save_dir = save_dir
         self.device = torch.device(device)
+        self.q_main2vis = q_main2vis
+        self.q_vis2main = q_vis2main
+        self.pause = False
+        self._traj: list[np.ndarray] = []      # camera centres for the GUI
+        self._traj_gt: list[np.ndarray] = []
 
         tr = config["Training"]
         self.monocular = tr["monocular"]
@@ -284,6 +295,45 @@ class FrontEnd:
         for kf_id, kf_T in data[3]:
             self.cameras[kf_id].T = kf_T
 
+    def _send_gui_packet(self, cur_frame_idx, frame: Frame):
+        """The frame's GUI packet; a snapshot of the map every 5th frame."""
+        if self.q_main2vis is None:
+            return
+        from ..gui.gui_utils import CameraMsg, GaussianPacket, snapshot
+
+        def center(T):
+            T = host(T)
+            return -T[:3, :3].T @ T[:3, 3]
+
+        self._traj.append(center(frame.T))
+        self._traj_gt.append(center(frame.T_gt))
+        window = self.current_window
+        self.q_main2vis.put(GaussianPacket(
+            gaussians=(snapshot(self.gaussians) if cur_frame_idx % 5 == 0
+                       else None),
+            current_frame=CameraMsg(uid=cur_frame_idx, T=frame.T,
+                                    T_gt=frame.T_gt),
+            keyframes=[CameraMsg(uid=i, T=self.cameras[i].T,
+                                 T_gt=self.cameras[i].T_gt) for i in window],
+            kf_window={window[0]: window[1:]} if window else {},
+            gtcolor=frame.data.gt_image if frame.data is not None else None,
+            gtdepth=frame.depth,
+            trajectory=np.asarray(self._traj, np.float32),
+            trajectory_gt=np.asarray(self._traj_gt, np.float32)))
+
+    def _check_gui_pause(self) -> bool:
+        """The GUI's pause back-channel: the latest request, passed on to
+        the backend."""
+        if self.q_vis2main is None:
+            return False
+        try:
+            data = self.q_vis2main.get_nowait()
+        except queue.Empty:
+            return self.pause
+        self.pause = data.flag_pause
+        self.backend_queue.put(["pause" if self.pause else "unpause"])
+        return self.pause
+
     def cleanup(self, cur_frame_idx):
         self.cameras[cur_frame_idx].clean()
 
@@ -302,6 +352,7 @@ class FrontEnd:
         Returns False when a monocular map reset was triggered: the frame
         index must not advance, and the same frame re-initialises the map
         on the next pass."""
+        self._send_gui_packet(cur_frame_idx, frame)
         if self.requested_keyframe > 0:
             self.cleanup(cur_frame_idx)
             return True
@@ -350,6 +401,9 @@ class FrontEnd:
     def run(self):
         cur_frame_idx = 0
         while True:
+            if self._check_gui_pause():
+                time.sleep(0.05)
+                continue
             if self.frontend_queue.empty():
                 if cur_frame_idx >= len(self.dataset):
                     self._flush_pending()

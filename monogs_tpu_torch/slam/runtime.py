@@ -18,10 +18,15 @@ the same name.
 
 The dataset is the one ``config["Dataset"]`` names (``load_dataset``:
 TUM, Replica and EuRoC from their files, or the synthetic sequence), on
-the run's device. Not ported here, each raising ``NotImplementedError``
-that names its slice: the GUI and live mode (``Results.use_gui``, dataset
-type "realsense"), and sharded mapping (``Parallel.n_devices`` or
-``gauss_devices`` above 1).
+the run's device. ``Results.use_gui`` starts the web GUI
+(``gui/slam_gui.py``) on its own thread, serving on ``Renderer.gui_port``
+(8765; 0 binds a free port, which ``SLAM.gui_port`` then holds; a port it
+cannot bind raises) and rendering on the run's device; the frontend sends it packets,
+and it gets a finish packet when the run ends. Not ported here, each
+raising ``NotImplementedError``: live mode (dataset type "realsense",
+which needs pyrealsense2 and a camera) and sharded mapping
+(``Parallel.n_devices`` or ``gauss_devices`` above 1, the parallel
+slice).
 """
 
 from __future__ import annotations
@@ -192,11 +197,10 @@ def map_hyper_from_config(config, spatial_lr_scale: float = 6.0) -> gm.MapHyper:
 
 def check_supported(config):
     """Raise for a config whose paths this port does not have yet."""
-    if (config["Results"].get("use_gui", False)
-            or config["Dataset"]["type"] == "realsense"):
+    if config["Dataset"]["type"] == "realsense":
         raise NotImplementedError(
-            "Results.use_gui / live mode (the web GUI) arrives with the GUI "
-            "slice; run with use_gui False (--eval sets it)")
+            "live mode (Dataset type 'realsense') is not ported: it needs "
+            "pyrealsense2 and a connected camera")
     check_parallel(config)
 
 
@@ -235,10 +239,17 @@ class SLAM:
                                device=self.device)
         self.frontend_queue = queue.Queue()
         self.backend_queue = queue.Queue()
+        self.use_gui = config["Results"].get("use_gui", False)
+        self.q_main2vis = queue.Queue() if self.use_gui else None
+        self.q_vis2main = queue.Queue() if self.use_gui else None
+        self.gui_thread = None
+        self.gui_params = None
+        self.gui_port = None     # the port the GUI bound, once it serves
         self.frontend = FrontEnd(
             config, dataset, self.intr, self.track_render_cfg, self.tcfg,
             self.frontend_queue, self.backend_queue, save_dir=save_dir,
-            device=self.device, draws=draws)
+            device=self.device, draws=draws, q_main2vis=self.q_main2vis,
+            q_vis2main=self.q_vis2main)
         self.backend = BackEnd(
             config, gaussians, self.intr, self.render_cfg, self.mcfg,
             self.hyper, self.frontend_queue, self.backend_queue,
@@ -291,9 +302,37 @@ class SLAM:
             if data[0] == "sync_backend" and self.frontend_queue.empty():
                 return data[1]
 
+    def _start_gui(self):
+        from ..gui import ParamsGUI, slam_gui
+        from ..gui.gui_utils import snapshot
+
+        params = ParamsGUI(
+            q_main2vis=self.q_main2vis, q_vis2main=self.q_vis2main,
+            gaussians=snapshot(self.backend.gaussians), intr=self.intr,
+            render_cfg=self.render_cfg,
+            port=self.config.get("Renderer", {}).get("gui_port", 8765),
+            save_dir=self.save_dir, device=self.device)
+        self.gui_params = params
+        self.gui_thread, self.gui_port = slam_gui.start(params)
+
+    def _stop_gui(self):
+        from ..gui.gui_utils import GaussianPacket
+
+        self.q_main2vis.put(GaussianPacket(finish=True))
+        self.gui_thread.join(timeout=10)
+        if self.gui_params.error is not None:
+            raise RuntimeError("GUI thread failed") from self.gui_params.error
+        if self.gui_thread.is_alive():
+            Log("GUI thread still serving 10 s after the finish packet",
+                tag="Warn")
+        else:
+            Log("GUI stopped and joined the main thread")
+
     def run(self) -> dict:
         backend_thread = threading.Thread(target=self._backend_main,
                                           name="monogs-backend", daemon=True)
+        if self.use_gui:
+            self._start_gui()
         t0 = time.time()
         backend_thread.start()
         try:
@@ -302,7 +341,11 @@ class SLAM:
             elapsed = time.time() - t0
             results = self._results(elapsed)
         finally:
-            self._stop_backend(backend_thread)
+            try:
+                self._stop_backend(backend_thread)
+            finally:
+                if self.gui_thread is not None:
+                    self._stop_gui()
         results["stages"] = self.stage_summary()
         self.results = results
         return results

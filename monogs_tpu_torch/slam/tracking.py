@@ -43,8 +43,19 @@ Random draws come from a ``torch.Generator``: the first-order tile subset
 iteration. ``draws`` replaces them with given values, so a test can replay
 another generator's stream.
 
-``stage != "full"`` (the truncated profiling programs) raises
-``NotImplementedError`` and names the slice that brings it.
+``TrackConfig.stage`` truncates the frame for attribution
+(``chip_smoke.py``'s ``diag_path``, as ``scripts/profile_track_fixed.py``
+uses the JAX package's): "build" stops after the initial margin build,
+"lists" after the first-order subset gathers and the ground-truth tiling,
+"fo" after the first-order loop, "so_prep" after the second order's list
+rebuild, "so" after the second-order loop, and "final_nc" runs everything
+but the final render's counts kernel; "full" is the product. The early
+stages return a ``TrackResult`` with zeroed images whose ``median_depth``
+and ``last_l1`` hold a sum over the stage's outputs, read to the host: PyTorch
+runs eagerly and eliminates no dead work, so the sum only marks the cut,
+and that read is the one host sync the cut adds (``host_syncs`` counts it).
+The sum over "build"'s lists is taken in int64, not int32 as the JAX
+package's wraps; the value is finite and is not compared across packages.
 """
 
 from __future__ import annotations
@@ -108,6 +119,9 @@ class TrackConfig(NamedTuple):
     stage: str = "full"
 
 
+STAGES = ("build", "lists", "fo", "so_prep", "so", "final_nc", "full")
+
+
 class TrackState(NamedTuple):
     i: int
     T: torch.Tensor
@@ -160,10 +174,8 @@ def _fast_so(cfg: RenderConfig, tcfg: TrackConfig) -> bool:
 
 def _check_supported(cfg: RenderConfig, tcfg: TrackConfig):
     _check_backend(cfg)
-    if tcfg.stage != "full":
-        raise NotImplementedError(
-            f"stage={tcfg.stage!r}: the attribution-only truncated frame "
-            "programs are not ported (profiling slice)")
+    if tcfg.stage not in STAGES:
+        raise ValueError(f"stage={tcfg.stage!r}: not one of {STAGES}")
     # the linearised second order pushes tangents through the render; on
     # these backends without frozen lists the render blends through a
     # kernel's autograd Function, which has no forward-mode rule (the JAX
@@ -384,12 +396,40 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
     def randperm(n):
         return torch.randperm(n, generator=generator, device=dev)
 
+    def cut(live, T_, ea_, eb_, fo_it, so_it, fo_h, so_h):
+        """A truncated stage's result (``TrackConfig.stage``): zeroed
+        images, ``live`` (a sum over the stage's outputs) read to the host
+        as the median depth and the last L1."""
+        live = f32(float(live))
+        z1 = torch.zeros((1, intr.height, intr.width), device=dev)
+        return TrackResult(
+            T=T_, ea=ea_, eb=eb_,
+            image=torch.zeros((3, intr.height, intr.width), device=dev),
+            depth=z1, opacity=z1.clone(),
+            n_touched=torch.zeros((gauss.xyz.shape[0],), dtype=torch.int32,
+                                  device=dev),
+            median_depth=live, last_l1=live, fo_iters=fo_it, so_iters=so_it,
+            fo_losses=fo_h, so_losses=so_h, host_syncs=syncs + 1)
+
+    def list_sum(lists, aux):
+        if lists is None:
+            return f32(0.0)
+        live = torch.sum(lists.idx).to(torch.float32)
+        if aux is not None:
+            live = live + torch.sum(aux.sel_m).to(torch.float32)
+        return live
+
+    no_fo = _nan_padded([], tcfg.fo_max_iter, dev)
+    no_so = torch.zeros((0,), dtype=torch.float32, device=dev)
     use_lists = tcfg.bin_margin > 0
     lists_fo = fo_aux = None
     if use_lists:
         lists_fo, fo_aux = build_tile_lists(
             gauss, T_init, intr, cfg_track, margin=tcfg.bin_margin,
             with_aux=True)
+    if tcfg.stage == "build":
+        return cut(list_sum(lists_fo, fo_aux), T_init, ea_init, eb_init, 0,
+                   0, no_fo, no_so)
     tx0f, ty0f = _tile_origins(intr, cfg_track, dev)
     n_fine = tx0f.shape[0]
     fast_so = _fast_so(cfg, tcfg)
@@ -420,6 +460,13 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
                 else randperm(n_fine)[:n_sub])
         lists_sub, tx0s, ty0s, gt_t, mask_t, gtd_t = subset(tsel)
         sub_scale = n_fine / n_sub
+    if tcfg.stage == "lists":
+        live = list_sum(lists_fo, None)
+        if fo_sub:
+            live = (live + torch.sum(gt_t)
+                    + torch.sum(lists_sub.idx).to(torch.float32)
+                    + torch.sum(tx0s))
+        return cut(live, T_init, ea_init, eb_init, 0, 0, no_fo, no_so)
 
     def fo_grad(s: TrackState):
         """(l1, g8) of the first-order objective at s."""
@@ -470,6 +517,9 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
         syncs += 1
     fo_iters = s.i
     fo_losses = _nan_padded(s.hist, tcfg.fo_max_iter, dev)
+    if tcfg.stage == "fo":
+        return cut(s.best_l1 + torch.sum(s.T), s.T, s.ea, s.eb, fo_iters, 0,
+                   fo_losses, no_so)
 
     # ---------------- phase 2: sketched Gauss-Newton / LM ----------------
     so_aux = None
@@ -484,6 +534,9 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
                 with_aux=True)
         else:
             lists_so = lists_fo
+        if tcfg.stage == "so_prep":
+            return cut(list_sum(lists_so, so_aux) + s.best_l1, s.T, s.ea,
+                       s.eb, fo_iters, 0, fo_losses, no_so)
         if not fast_so:
             m_sketch = frame.gt_image.shape[1] * frame.gt_image.shape[2]
         else:
@@ -575,7 +628,10 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
         so_losses = _nan_padded(s.hist, tcfg.so_max_iter, dev)
     else:
         so_iters = 0
-        so_losses = torch.zeros((0,), dtype=torch.float32, device=dev)
+        so_losses = no_so
+    if tcfg.stage == "so":
+        return cut(s.best_l1 + torch.sum(s.T), s.T, s.ea, s.eb, fo_iters,
+                   so_iters, fo_losses, so_losses)
 
     if tcfg.use_best_loss:
         T, ea, eb, last_l1 = s.best_T, s.best_ea, s.best_eb, s.best_l1
@@ -591,7 +647,9 @@ def track_frame(gauss: GaussianArrays, frame: FrameData, T_init, ea_init,
           and so_aux is not None):
         final_lists = refine_fine_lists(gauss, T, intr, cfg_track, so_aux,
                                         torch.arange(n_fine, device=dev))
-    out = render(gauss, T, intr, cfg, lists=final_lists)
+    cfg_final = (cfg._replace(with_n_touched=False)
+                 if tcfg.stage == "final_nc" else cfg)
+    out = render(gauss, T, intr, cfg_final, lists=final_lists)
     return TrackResult(
         T=T, ea=ea, eb=eb, image=out.image, depth=out.depth,
         opacity=out.opacity, n_touched=out.n_touched,

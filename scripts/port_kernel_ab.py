@@ -59,6 +59,7 @@ sys.path.insert(0, str(ROOT))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from monogs_tpu_torch.utils import roofline  # noqa: E402
 
 
 class _NoMaddInterface:
@@ -252,7 +253,7 @@ def main():
         print(json.dumps({"build": name, "registers": regs}), flush=True)
     with_madd = not any(isinstance(lib.get("blend_lists"), _NoMaddInterface)
                         for lib in libs.values())
-    e_exp, _ = cs.expf_ops()
+    e_exp, _ = roofline.expf_ops()
 
     dev = torch.device("cuda")
     intr, cfg, tcfg, scene, poses_fn = cs.make_bench(torch, dev)

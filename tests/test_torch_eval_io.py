@@ -303,10 +303,16 @@ def test_profile_logs_roundtrip_across_packages(tmp_path):
     assert sorted(recs) == list(range(4)) and float(recs[3]["last_l1"]) == 6.0
 
 
-def test_trace_names_its_slice():
-    with pytest.raises(NotImplementedError, match="profiling slice"):
-        with trace("unused"):
-            pass
+def test_trace_names_its_slice(tmp_path):
+    """trace is ported (the profiling slice): on the CPU it writes a trace
+    file; on its default device, the card, it needs one."""
+    with trace(str(tmp_path), device="cpu") as tr:
+        torch.ones(3).sum()
+    assert os.path.isfile(tr.path) and tr.summary["cpu_ops"] > 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            with trace(str(tmp_path)):
+                pass
 
 
 def test_metrics_logger(tmp_path):

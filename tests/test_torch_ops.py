@@ -255,3 +255,91 @@ def test_compute_grad_mask(dataset_type):
     x = t(img.reshape(-1))
     assert float(timage.torch_median(x)) == float(
         jimage.torch_median(img.reshape(-1)))
+
+
+# ------------------------------------------------ functions nothing calls yet
+
+def _leftover(case, rng):
+    """(JAX value, port value, rtol, atol) of one leftover function on
+    inputs drawn from ``rng``."""
+    from monogs_tpu.ops import scan as jscan
+    from monogs_tpu.render import camera as jcam
+    from monogs_tpu.render import tiling as jtiling
+    from monogs_tpu_torch.ops import scan as tscan
+    from monogs_tpu_torch.render import camera as tcam
+    from monogs_tpu_torch.render import tiling as ttiling
+
+    f32 = np.float32
+    if case == "relative_pose_error":
+        P = [np.asarray(jse3.se3_exp(jnp.asarray(small_tau(i, 0.3))))
+             for i in range(4)]
+        return (jse3.relative_pose_error(*P),
+                tse3.relative_pose_error(*map(t, P)), 1e-5, 1e-6)
+    if case == "sh_to_rgb":
+        sh = rng.standard_normal((50, 1, 3)).astype(f32)
+        return jsh.sh_to_rgb(sh), tsh.sh_to_rgb(t(sh)), 1e-6, 0.0
+    if case in ("blocked_cumsum_float", "blocked_cumsum_int"):
+        if case.endswith("int"):
+            x = rng.integers(0, 50, (3, 700)).astype(np.int32)
+        else:
+            x = rng.uniform(-1.0, 1.0, (3, 700)).astype(f32)
+        return (jscan.blocked_cumsum(jnp.asarray(x), block=256),
+                tscan.blocked_cumsum(torch.from_numpy(x), block=256),
+                1e-5, 1e-4)
+    intr = jcam.Intrinsics(fx=80.0, fy=82.0, cx=31.5, cy=23.5, width=64,
+                           height=48)
+    if case == "project_points":
+        p = np.concatenate([rng.standard_normal((100, 2)),
+                            rng.uniform(-0.5, 4.0, (100, 1))], -1).astype(f32)
+        return (jcam.project_points(jnp.asarray(p), intr),
+                tcam.project_points(t(p), tcam.Intrinsics(*intr)), 1e-6, 1e-5)
+    if case == "tile_overlap_mask":
+        m2 = rng.uniform(-10.0, 70.0, (200, 2)).astype(f32)
+        rad = rng.uniform(0.0, 12.0, (200,)).astype(f32)
+        vld = rng.uniform(size=200) > 0.2
+        return (jtiling.tile_overlap_mask(m2, rad, vld, 16, 0, 32, 16),
+                ttiling.tile_overlap_mask(t(m2), t(rad), t(vld), 16, 0, 32,
+                                          16), 0.0, 0.0)
+    img, gt = (rng.uniform(size=(3, 48, 64)).astype(f32) for _ in range(2))
+    opa = rng.uniform(0.8, 1.0, (1, 48, 64)).astype(f32)
+    mask = (rng.uniform(size=(1, 48, 64)) > 0.3).astype(f32)
+    dep = rng.uniform(0.0, 3.0, (1, 48, 64)).astype(f32)
+    gtd = rng.uniform(0.0, 3.0, (1, 48, 64)).astype(f32)
+    if case == "tracking_loss_scalar_rgb":
+        return (jlosses.tracking_loss_scalar_rgb(img, gt, opa, mask, 1.1,
+                                                 0.02),
+                tlosses.tracking_loss_scalar_rgb(
+                    t(img), t(gt), t(opa), t(mask), torch.tensor(1.1),
+                    torch.tensor(0.02)), 1e-5, 0.0)
+    if case == "tracking_loss_scalar_rgbd":
+        return (jlosses.tracking_loss_scalar_rgbd(img, dep, gt, gtd, opa,
+                                                  mask, 1.1, 0.02, 0.9),
+                tlosses.tracking_loss_scalar_rgbd(
+                    t(img), t(dep), t(gt), t(gtd), t(opa), t(mask),
+                    torch.tensor(1.1), torch.tensor(0.02), 0.9), 1e-5, 0.0)
+    assert case == "median_depth_std"
+    dep[0, :5] = 0.0
+    return (jlosses.get_median_depth(dep, opa, return_std=True),
+            tlosses.get_median_depth(t(dep), t(opa), return_std=True),
+            1e-5, 0.0)
+
+
+@pytest.mark.parametrize("case", [
+    "relative_pose_error", "sh_to_rgb", "blocked_cumsum_float",
+    "blocked_cumsum_int", "project_points", "tile_overlap_mask",
+    "tracking_loss_scalar_rgb", "tracking_loss_scalar_rgbd",
+    "median_depth_std"])
+def test_leftovers_match_jax(case):
+    """The JAX package's small functions that nothing in the port calls yet
+    (se3, sh, scan, camera, tiling, the scalar tracking losses, the median
+    depth's spread), against the JAX package on the same inputs. Elementwise
+    math to a few ulps; reassociated sums (the blocked cumsum's products,
+    the means) to rtol 1e-5; integer sums, masks and the median exactly."""
+    want, got, rtol, atol = _leftover(case, np.random.default_rng(3))
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(want) == len(got)
+    for w, g in zip(want, got):
+        w, g = np.asarray(w), npy(g)
+        assert w.shape == g.shape and w.dtype == g.dtype, (w.dtype, g.dtype)
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol)

@@ -364,10 +364,9 @@ def test_backend_failure_surfaces(monkeypatch):
 
 
 @pytest.mark.parametrize("change,match", [
-    (lambda c: c["Results"].update(use_gui=True), "GUI slice"),
     (lambda c: c.update(Parallel={"n_devices": 2}), "parallel slice"),
     (lambda c: c.update(Parallel={"gauss_devices": 2}), "parallel slice"),
-    (lambda c: c["Dataset"].update(type="realsense"), "GUI slice"),
+    (lambda c: c["Dataset"].update(type="realsense"), "live mode"),
 ])
 def test_unported_configs_raise(change, match):
     cfg = trimmed_config()

@@ -137,15 +137,15 @@ def test_cuda_default_entry_points_raise_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("backend,change,error,match", [
-    ("pallas_lists", dict(stage="fo"), NotImplementedError,
-     "profiling slice"),
+    ("pallas_lists", dict(stage="preprocess"), ValueError, "not one of"),
     ("pallas_lists", dict(bin_margin=0.0), TypeError, "forward-mode"),
     ("pallas", dict(bin_margin=0.0), TypeError, "forward-mode"),
 ])
 def test_unported_branches_raise(backend, change, error, match):
-    """The truncated profiling stages name their slice; the linearised
+    """A stage the JAX package does not have is refused; the linearised
     second order through a kernel (where the JAX package raises too)
-    names its cause; every other branch is accepted."""
+    names its cause; every other branch, and every truncated stage, is
+    accepted."""
     from monogs_tpu_torch.render import RenderConfig
 
     with pytest.raises(error, match=match):
@@ -155,3 +155,6 @@ def test_unported_branches_raise(backend, change, error, match):
         ttrack._check_supported(RenderConfig(backend=be),
                                 ttrack.TrackConfig(**TRACK))
     ttrack._check_supported(RenderConfig(), ttrack.TrackConfig())
+    for stage in ttrack.STAGES:
+        ttrack._check_supported(RenderConfig(backend=backend),
+                                ttrack.TrackConfig(**TRACK, stage=stage))
