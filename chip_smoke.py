@@ -68,7 +68,17 @@ JAX. Phases, each of which exits non-zero on failure:
    widths, cut to 16 frames and fewer BA / refinement iterations (see
    ``SLAM_RUNS``): keyframe ATE, PSNR/SSIM before and after refinement,
    the stage split, and kernels #1-#6 launched;
-10. diag path (observability, on the tracking path's scene): (a) one
+10. parallel path (sharded mapping, ``monogs_tpu_torch/parallel/``): the
+   mapping path's window at k_macro 4096, 4 BA iterations on one NCCL
+   rank (the view-sharded call with ``map_iters``'s bits, the map-sharded
+   one within the JAX tests' tolerances), on 2 gloo ranks sharing the
+   card (views; map) and on a 2 x 2 mesh, each held to ``map_iters``, 30
+   iterations across a densify on the sharded map held to its
+   properties, then the SLAM path's rgbd first16 run with
+   ``Parallel.n_devices: 2`` and with ``gauss_devices: 2`` through
+   ``SLAM(config, dist_backend="gloo")``, the 4-rank NCCL config raising
+   on one card, and kernels #2 and #6 launched on every rank;
+11. diag path (observability, on the tracking path's scene): (a) one
    frame of the mono chain cut at each of ``track_frame``'s stages
    (build, lists, fo, so_prep, so, final_nc, full), checked as the CPU
    test checks them, with each stage's least time over 5 interleaved
@@ -83,7 +93,7 @@ JAX. Phases, each of which exits non-zero on failure:
    /map3d.jpg fetched over localhost, the view decoded and held to the
    render, then the SLAM path's "rgbd" run once more with ``use_gui``
    (its poses bit for bit those of the run without the GUI);
-11. files path: SLAM from files through the port's loaders. The stock
+12. files path: SLAM from files through the port's loaders. The stock
    synthetic sequence's first 16 frames, rendered at each config's own
    calibration and width, are written in the layout of
    configs/rgbd/tum/fr1_desk.yaml (640x480 PNG, distorted: the raw frames
@@ -109,8 +119,8 @@ Each path's launch counters are zeroed just before it and read just after.
 
 Output, one JSON object per line: each path's metrics, then
 ``{"kernels": [...]}`` (each kernel's time, plain time, bound, error and
-launches on its path, and on ``slam_path``, ``diag_path`` and
-``files_path``; ``ms`` is
+launches on its path, and on ``slam_path``, ``parallel_path`` (summed
+over the ranks), ``diag_path`` and ``files_path``; ``ms`` is
 the CUDA-event time of one call on an idle card, which also counts the
 card's wait for the host, and ``device_ms`` the device time of one call
 with the card kept busy), then
@@ -1904,7 +1914,8 @@ class FirstFrames:
         return self.ds[idx]
 
 
-def slam_run(torch, name, file, cut, cfg, device, slams=None):
+def slam_run(torch, name, file, cut, cfg, device, slams=None,
+             dist_backend=None):
     """One SLAM run through ``SLAM(config).run()`` with its metrics; the
     ``SLAM`` is appended to ``slams`` (when given) before it runs."""
     from monogs_tpu_torch.data import load_dataset
@@ -1921,7 +1932,8 @@ def slam_run(torch, name, file, cut, cfg, device, slams=None):
     save_dir = ROOT / "build" / "slam_smoke" / name
     save_dir.mkdir(parents=True, exist_ok=True)
     ds = FirstFrames(load_dataset(cfg, device=device), SLAM_FRAMES)
-    slam = SLAM(cfg, dataset=ds, save_dir=str(save_dir), device=device)
+    slam = SLAM(cfg, dataset=ds, save_dir=str(save_dir), device=device,
+                dist_backend=dist_backend)
     if slams is not None:
         slams.append(slam)
     if device == "cuda":
@@ -2015,6 +2027,288 @@ def slam_path(torch, smi, device="cuda"):
     check(device != "cuda" or not missing,
           f"slam path: kernels {missing} never launched")
     return total, rgbd_poses
+
+
+# --------------------------------------------------------- parallel path
+
+PAR_ITERS = 4           # BA iterations of each check: below every trigger
+PAR_IT0 = 100           # iterations 101-104: no densify, reset or rebuild
+PAR_DENSIFY = (190, 10, 20)   # from iteration 190: 10 iterations up to the
+#                               densify at 200, then 20 more
+PAR_RANKS = 4           # one gloo group serves the 2-rank and 2 x 2 checks
+# the checks' macro-list cap: the sharded merge selects exactly the
+# single-device lists' rows only where no macro list is cut at k_macro
+# (parallel/gauss.py); at the bench's 1024 most of the window's macro tiles
+# are, and a shard then keeps rows that the single-device binning dropped
+PAR_K_MACRO = 4096
+PAR_SHAPES = ((2, 1), (1, 2), (2, 2))     # (view, gauss)
+# the sharded loops' kernels, on every rank: #2 (the final visibility's
+# counts) and #6 (the fused mapping step)
+PAR_KERNELS = ("fwd_counts", "map_grad")
+PAR_SLAM = (("rgbd_view2", {"n_devices": 2}),
+            ("rgbd_gauss2", {"gauss_devices": 2}))
+
+
+def par_diff(torch, ref, out):
+    """{name: (max |a - b|, max |a - b| / |b|, entries over the tolerance)}
+    of two map_iters results, with the JAX tests' tolerances
+    (``tests/test_gauss_iters.py::_check``: poses rtol 1e-5 atol 1e-6,
+    exposures rtol 1e-5 atol 1e-7, parameters rtol 2e-3 atol 2e-4,
+    visibility equal). The window Adam moments are reported, not held:
+    at 640x480 a parameter moved by a rounding difference moves some of
+    300k L1 residuals across 0, whose signs flip, and a pose gradient with
+    them by up to 0.3 % (c4); the poses that the moments drive are held,
+    and the CPU tests hold the moments to ``tests/test_multichip.py``'s
+    atol 1e-6 at its size."""
+    tol = dict(T=(1e-5, 1e-6), ea=(1e-5, 1e-7), eb=(1e-5, 1e-7))
+    pairs = {f"cams.{k}": (getattr(out.cams, k), getattr(ref.cams, k),
+                           tol[k]) for k in tol}
+    for k in ref.m.params._fields:
+        pairs[f"m.params.{k}"] = (getattr(out.m.params, k),
+                                  getattr(ref.m.params, k), (2e-3, 2e-4))
+    for i in range(2):
+        pairs[f"kf_adam[{i}]"] = (out.kf_adam[i], ref.kf_adam[i], None)
+    res = {}
+    for name, (a, b, tol_) in pairs.items():
+        d = torch.abs(a.float() - b.float())
+        rel = d / torch.clamp(torch.abs(b.float()), min=1e-30)
+        res[name] = (float(d.max()), float(rel.max()), 0 if tol_ is None
+                     else int((d > tol_[1] + tol_[0] * torch.abs(
+                         b.float())).sum()))
+    res["visibility"] = (0.0, 0.0, int((out.visibility
+                                        != ref.visibility).sum()))
+    res["n_active"] = (0.0, 0.0, abs(int(out.m.n_active)
+                                     - int(ref.m.n_active)))
+    return res
+
+
+def par_check(torch, what, ref, out):
+    d = par_diff(torch, ref, out)
+    bad = {k: v for k, v in d.items() if v[2]}
+    check(not bad, f"parallel {what}: outside the tolerances (max abs, "
+          f"max rel, entries over): {bad}")
+    return {k: v[:2] for k, v in d.items()}
+
+
+def same_bits(torch, a, b):
+    sa, sb = state_tensors(a), state_tensors(b)
+    return sorted(k for k in sa if not torch.equal(sa[k], sb[k]))
+
+
+def rank_launches(rg):
+    """[{kernel: launches}] of every rank of ``rg`` and their peak memory."""
+    reps = rg.launches()
+    return ([{k: v for k, v in r["launches"].items() if v} for r in reps],
+            [r["max_memory_allocated"] for r in reps])
+
+
+def parallel_path(torch, intr, cfg, scene, frames, poses, smi,
+                  device="cuda"):
+    """Sharded mapping (``parallel/``) on the one card, at the mapping
+    path's width: the 100k-Gaussian scene in a 2^17 map, the B = 10
+    window. (a) NCCL, one rank on cuda:0: ``sharded_map_iters`` with the
+    bits of ``map_iters`` from the same state, ``gp_sharded_map_iters``
+    within the JAX tests' tolerances (bits reported); (b) gloo, 2 ranks
+    sharing the card: view 2 and gauss 2; (c) gloo, the 2 x 2 ("view",
+    "gauss") mesh; each 4 iterations below every trigger against
+    ``map_iters``; (d) 30 iterations at tile_frac 0.25 on gauss 2 across
+    the densify at iteration 200, held to the properties of
+    ``test_gauss_iters.py``'s densify test. Then ``slam_path``'s "rgbd"
+    first16 run through ``SLAM(config, dist_backend="gloo").run()`` with
+    ``Parallel.n_devices: 2`` and with ``gauss_devices: 2``, and the
+    4-rank NCCL config on the one card raising. Kernels #2 and #6 must
+    launch on every rank of every sharded run. Returns (metrics, the
+    launches summed over every rank and run)."""
+    from monogs_tpu_torch.models import gaussian_map as gm
+    from monogs_tpu_torch.parallel.gauss import make_gauss_mesh
+    from monogs_tpu_torch.parallel.gauss_iters import gp_sharded_map_iters
+    from monogs_tpu_torch.parallel.launch import RankGroup
+    from monogs_tpu_torch.slam import mapping as mp
+    from monogs_tpu_torch.slam.config import load_config
+    from monogs_tpu_torch.slam.runtime import SLAM
+
+    from monogs_tpu_torch.render import build_tile_lists
+
+    t_phase = time.perf_counter()
+    hyper = gm.MapHyper()
+    mc = mp.MapConfig(monocular=True, window_size=8, pose_window=5,
+                      tile_frac=1.0)
+    m0, cams = map_window(torch, scene, frames, poses, views=MAP_VIEWS)
+    out, total = {}, {}
+    bench_cfg, cfg = cfg, cfg._replace(k_macro=PAR_K_MACRO)
+    # macro lists of the window's first view that the cap cuts
+    out["macro_lists_at_cap"] = {
+        c.k_macro: int((build_tile_lists(
+            m0.render_view(), cams.T[0], intr, c, margin=mc.bin_margin,
+            with_aux=True)[1].vld_m.sum(1) >= c.k_macro).sum())
+        for c in (bench_cfg, cfg)}
+
+    def add(launches):
+        for r in launches:
+            for k, v in r.items():
+                total[k] = total.get(k, 0) + v
+
+    def need_kernels(what, launches):
+        for r, ln in enumerate(launches):
+            # the RGB-D runs launch #6's RGB-D variant
+            miss = [k for k in PAR_KERNELS
+                    if not ln.get(k) and not ln.get(k + "_rgbd")]
+            check(device != "cuda" or not miss,
+                  f"parallel {what}: rank {r} never launched {miss}")
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    reset_launches()
+    ref = mp.map_iters(m0, cams, PAR_ITERS, PAR_IT0, None, intr, cfg, mc,
+                       hyper)
+    sync()
+    reset_launches()
+
+    # (a) NCCL, one rank
+    t0 = time.perf_counter()
+    with RankGroup(1, "nccl" if device == "cuda" else "gloo", device) as rg:
+        t1 = time.perf_counter()
+        va = rg.map_iters((1, 1), m0, cams, PAR_ITERS, PAR_IT0, None, intr,
+                          cfg, mc, hyper)
+        sync()
+        t_view = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ga = gp_sharded_map_iters(m0, cams, PAR_ITERS, PAR_IT0, None,
+                                  make_gauss_mesh(1), intr, cfg, mc, hyper)
+        sync()
+        t_gauss = time.perf_counter() - t1
+        ln_a, mem_a = rank_launches(rg)
+    differ = same_bits(torch, va, ref)
+    check(not differ, f"parallel (a): the 1-rank view-sharded run differs "
+          f"from map_iters in {differ}")
+    gdiff = same_bits(torch, ga, ref)
+    out["a_nccl_1rank"] = dict(
+        seconds=time.perf_counter() - t0, view_s=t_view, gauss_s=t_gauss,
+        view_same_bits=True, gauss_same_bits=not gdiff,
+        gauss_differs_in=gdiff, gauss_max_diff=par_check(torch, "(a) gauss",
+                                                         ref, ga),
+        launches=ln_a, max_memory_allocated=mem_a)
+    need_kernels("(a)", ln_a)
+    add(ln_a)
+
+    # (b), (c), (d): one gloo group of 4 ranks on the card
+    t0 = time.perf_counter()
+    with RankGroup(PAR_RANKS, "gloo", device) as rg:
+        out["gloo_start_s"] = time.perf_counter() - t0
+        for shape in PAR_SHAPES:
+            rg.reset_launches()
+            t1 = time.perf_counter()
+            r = rg.map_iters(shape, m0, cams, PAR_ITERS, PAR_IT0, None, intr,
+                             cfg, mc, hyper)
+            sync()
+            secs = time.perf_counter() - t1
+            ln, mem = rank_launches(rg)
+            name = f"{'b' if 1 in shape else 'c'}_gloo_{shape[0]}x{shape[1]}"
+            out[name] = dict(seconds=secs, s_per_iter=secs / PAR_ITERS,
+                             max_diff=par_check(torch, name, ref, r),
+                             launches=ln[:shape[0] * shape[1]],
+                             max_memory_allocated=mem)
+            need_kernels(name, ln[:shape[0] * shape[1]])
+            add(ln)
+
+        # the bench's k_macro, reported: the sharded lists keep rows that
+        # the single-device macro lists cut
+        ref_b = mp.map_iters(m0, cams, PAR_ITERS, PAR_IT0, None, intr,
+                             bench_cfg, mc, hyper)
+        r = rg.map_iters((1, 2), m0, cams, PAR_ITERS, PAR_IT0, None, intr,
+                         bench_cfg, mc, hyper)
+        out["gloo_1x2_k_macro_1024"] = {
+            k: v for k, v in par_diff(torch, ref_b, r).items()}
+
+        # (d) across the densify at iteration 200, on gauss 2
+        it0, n1, n2 = PAR_DENSIFY
+        mcd = mc._replace(tile_frac=0.25)
+        gen = torch.Generator(device=device).manual_seed(3)
+        l1_before = window_l1(torch, m0, cams, intr, cfg)
+        rg.reset_launches()
+        t1 = time.perf_counter()
+        r1 = rg.map_iters((1, 2), m0, cams, n1, it0, gen, intr, cfg, mcd,
+                          hyper)
+        sync()
+        stats_reset = (float(torch.abs(r1.m.grad_accum).max()) == 0.0
+                       and float(torch.abs(r1.m.denom).max()) == 0.0)
+        r2 = rg.map_iters((1, 2), r1.m, r1.cams, n2, r1.it_count, gen, intr,
+                          cfg, mcd, hyper, kf_adam=r1.kf_adam)
+        sync()
+        secs = time.perf_counter() - t1
+        ln, mem = rank_launches(rg)
+        l1_after = window_l1(torch, r2.m, r2.cams, intr, cfg)
+        check_finite_map(torch, r2.m, r2.cams, "parallel (d)")
+        finite = all(bool(torch.isfinite(x).all()) for x in (
+            r2.m.grad_accum, r2.m.denom, r2.kf_adam[0], r2.kf_adam[1]))
+        n_act = int(r2.m.n_active)
+        check(finite and 0 < n_act <= r2.m.capacity,
+              f"parallel (d): finite {finite}, n_active {n_act}")
+        check(stats_reset, "parallel (d): the densification statistics were "
+              "not reset at the densify of iteration 200")
+        check(r2.it_count == it0 + n1 + n2, f"parallel (d): it_count "
+              f"{r2.it_count}")
+        check(l1_after < l1_before, f"parallel (d): window L1 {l1_after:.6f}"
+              f" not below {l1_before:.6f} at the start")
+        out["d_gloo_gauss2_densify"] = dict(
+            seconds=secs, s_per_iter=secs / (n1 + n2), l1_before=l1_before,
+            l1_after=l1_after, n_active_before=int(m0.n_active),
+            n_active_after=n_act, stats_reset_at_densify=stats_reset,
+            visible=int(r2.visibility.sum()), launches=ln[:2],
+            max_memory_allocated=mem)
+        need_kernels("(d)", ln[:2])
+        add(ln)
+
+    # the SLAM runs: slam_path's "rgbd" on first16, 2 ranks sharing the card
+    for name, par in PAR_SLAM:
+        cfg_s = slam_config("rgbd.yaml", "first16")
+        cfg_s["Parallel"] = par
+        slams = []
+        res, launches, poses_ok, _ = slam_run(
+            torch, name, "rgbd.yaml", "first16", cfg_s, device, slams=slams,
+            dist_backend="gloo")
+        fin = slams[0].ranks.final_launches
+        ln = [{k: v for k, v in r["launches"].items() if v} for r in fin]
+        res["rank_launches"] = ln
+        res["rank_max_memory_allocated"] = [r["max_memory_allocated"]
+                                            for r in fin]
+        res["device"] = smi
+        print(json.dumps({f"slam_{name}": res}, default=float), flush=True)
+        log(f"slam {name}: {res['fps']:.3f} fps, ATE {res['ate']}, "
+            f"keyframes {res['kf_indices']}")
+        check(res["n_frames"] == SLAM_FRAMES and poses_ok,
+              f"slam {name}: {res['n_frames']} frames, finite {poses_ok}")
+        check(res["ate"] < 0.05, f"slam {name}: ATE {res['ate']} m >= 0.05")
+        check(len(res["kf_indices"]) >= 2,
+              f"slam {name}: keyframes {res['kf_indices']}")
+        check(res["after"]["mean_psnr"] >= res["before"]["mean_psnr"],
+              f"slam {name}: PSNR after refinement below before")
+        need_kernels(f"slam {name}", ln)
+        add(ln[1:])
+        add([launches])
+        out[f"slam_{name}"] = dict(fps=res["fps"], ate=res["ate"],
+                                   kf_indices=res["kf_indices"],
+                                   seconds=res["seconds"])
+
+    # four ranks on NCCL with one card: refused, naming both counts
+    multi = load_config(str(ROOT / "configs" / "synthetic"
+                            / "rgbd_multichip.yaml"))
+    try:
+        SLAM(multi, device=device, dist_backend="nccl")
+        raised = None
+    except (RuntimeError, ValueError) as e:
+        raised = str(e)
+    n_cards = torch.cuda.device_count() if device == "cuda" else 0
+    check(device != "cuda" or n_cards >= 4 or (
+        raised is not None and "4 ranks" in raised
+        and f"{n_cards} card" in raised),
+          f"parallel: 4 NCCL ranks on {n_cards} card(s) gave {raised!r}")
+    out["nccl_4_ranks_on_one_card"] = raised
+    out["seconds"] = time.perf_counter() - t_phase
+    out["device"] = smi
+    return out, total
 
 
 # ------------------------------------------------------------- diag path
@@ -3169,6 +3463,8 @@ def run(scene_seed):
     repro = timed("ba_repro_path", ba_repro_path, intr, cfg, scene, frames,
                   chain_poses)
     slam_launches, slam_poses = timed("slam_path", slam_path, smi)
+    parallel, par_launches = timed("parallel_path", parallel_path, intr, cfg,
+                                   scene, frames, chain_poses, smi)
     diag, diag_launches = timed("diag_path", diag_path, intr, cfg, tcfg,
                                 scene, frames, chain_poses, entries,
                                 slam_poses, summary["profile"])
@@ -3190,6 +3486,8 @@ def run(scene_seed):
                                else files_launches.get(kind, 0))
         e["diag_launches"] = (0 if name.endswith("@tile32")
                               else diag_launches.get(kind, 0))
+        e["parallel_launches"] = (0 if name.endswith("@tile32")
+                                  else par_launches.get(kind, 0))
     summary["build_s"] = build_s
     summary["build_record"] = dict(built=stats.compiled,
                                    seconds=stats.build_seconds,
@@ -3210,6 +3508,8 @@ def run(scene_seed):
     print(json.dumps({"ab_mapping_path": ab_map}), flush=True)
     print(json.dumps({"ab_tracking_path": ab_track}), flush=True)
     print(json.dumps({"ba_repro_path": dict(repro, device=smi)}), flush=True)
+    print(json.dumps({"parallel_path": dict(parallel, launches=par_launches)},
+                     default=float), flush=True)
     print(json.dumps({"diag_path": dict(diag, launches=diag_launches,
                                         device=smi)}, default=float),
           flush=True)

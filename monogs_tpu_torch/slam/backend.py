@@ -17,8 +17,13 @@ events. Random draws come from a ``torch.Generator`` seeded with
 permutation from a numpy generator seeded with ``seed + 54321``, as in the
 JAX package.
 
-The view- and Gaussian-sharded mapping (``Parallel.n_devices`` or
-``gauss_devices`` above 1) arrive with the parallel slice and raise.
+Sharded mapping (``parallel/``): ``Parallel.n_devices`` shards the
+window's views over a "view" mesh dimension, ``Parallel.gauss_devices``
+the map itself over "gauss" (it needs ``Renderer.backend`` "pallas_lists":
+the sharded loop is the fused step; ``check_parallel``), both a 2-D mesh.
+``_map_iters`` then routes every mapping call through the run's
+``RankGroup`` (``parallel/launch.py``), which hands it to the other ranks
+first; colour refinement stays on this rank, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -56,14 +61,34 @@ class Keyframe:
     T_gt: Optional[torch.Tensor] = None
 
 
-def check_parallel(config):
-    """Raise for a config that shards mapping over several devices."""
+def parallel_shape(config):
+    """(n_view, n_gauss): the mapping mesh of the config's ``Parallel``
+    section (1 x 1 without one)."""
     par = config.get("Parallel", {}) or {}
-    for key in ("n_devices", "gauss_devices"):
-        if int(par.get(key, 1)) > 1:
-            raise NotImplementedError(
-                f"Parallel.{key} > 1 (sharded mapping) arrives with the "
-                "parallel slice")
+    return int(par.get("n_devices", 1)), int(par.get("gauss_devices", 1))
+
+
+def check_parallel(config, render_cfg: RenderConfig, mcfg: MapConfig):
+    """``parallel_shape``, checked as the JAX backend checks it:
+    ``gauss_devices`` above 1 needs the "pallas_lists" backend and ignores
+    the mapping knobs of other branches (logged)."""
+    n_view, n_gauss = parallel_shape(config)
+    if n_gauss > 1:
+        if render_cfg.backend != "pallas_lists":
+            raise ValueError(
+                "Parallel.gauss_devices needs Renderer.backend="
+                "'pallas_lists' (the gauss-sharded mapping loop is built on "
+                "the fused mapping step and the counts kernel)")
+        ignored = [k for k, v, d in (
+            ("fused_grad", mcfg.fused_grad, True),
+            ("io_batch", mcfg.io_batch, False),
+            ("scatter_segsum", mcfg.scatter_segsum, False),
+            ("gather_first", mcfg.gather_first, False)) if v != d]
+        if ignored:
+            Log("Parallel.gauss_devices ignores non-default mapping knobs "
+                f"{ignored} (the gauss-sharded loop is the fused step only)",
+                tag="warn")
+    return n_view, n_gauss
 
 
 class BackEnd:
@@ -71,8 +96,8 @@ class BackEnd:
                  intr: Intrinsics, render_cfg: RenderConfig, mcfg: MapConfig,
                  hyper: gm.MapHyper, frontend_queue, backend_queue,
                  live_mode: bool = False, insert_cap: int = 32768,
-                 seed: int = 0, draws: Optional[DrawSource] = None):
-        check_parallel(config)
+                 seed: int = 0, draws: Optional[DrawSource] = None,
+                 ranks=None):
         self.config = config
         self.gaussians = gaussians
         self.device = gaussians.active.device
@@ -102,6 +127,14 @@ class BackEnd:
         self.point_size = ds.get("point_size", 0.01)
         self.adaptive_pointsize = ds.get("adaptive_pointsize", True)
 
+        # the mesh shape, and the ranks that run its calls (SLAM starts
+        # them, ``parallel/launch.RankGroup``)
+        self.shape = parallel_shape(config)
+        self.ranks = ranks
+        if ranks is not None:
+            Log(f"Mapping sharded over a {self.shape[0]} x {self.shape[1]} "
+                f"(view x gauss) mesh of {ranks.backend} ranks")
+
         # wall-clock per stage: the full-system time split
         self.timers = StageTimers(period=1 << 30, tag="ProfBE")
 
@@ -128,11 +161,20 @@ class BackEnd:
         # draws for the JAX package's batch: one slot at initialisation,
         # else window_size + pool_size, the staged views in the first
         slots = 1 if initialization else self.window_size + self.mcfg.pool_size
+        draws = self.draws.map(n_iters, slots)
+        if self.ranks is not None:
+            return self.ranks.map_iters(
+                self.shape, m, cams, n_iters, self.iteration_count,
+                self.generator, self.intr, self.render_cfg, self.mcfg,
+                self.hyper, initialization=initialization, draws=draws, **kw)
+        if self.shape != (1, 1):
+            raise RuntimeError(
+                f"a {self.shape[0]} x {self.shape[1]} mapping mesh needs its "
+                "ranks (SLAM.run starts a parallel.launch.RankGroup)")
         return map_iters(
             m, cams, n_iters, self.iteration_count, self.generator,
             self.intr, self.render_cfg, self.mcfg, self.hyper,
-            initialization=initialization,
-            draws=self.draws.map(n_iters, slots), **kw)
+            initialization=initialization, draws=draws, **kw)
 
     def add_next_kf(self, frame_idx, kf: Keyframe, depth_map, init=False):
         """Insert the keyframe's unprojected depth into the map."""

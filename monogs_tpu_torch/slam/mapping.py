@@ -48,8 +48,17 @@ noise of a densify; per colour-refinement iteration, the view.
 ``MapDraws`` and ``views`` replace them with given values, so a test can
 replay the JAX package's ``jax.random`` keys.
 
-``axis_name`` (the view-sharded program) raises ``NotImplementedError``
-and names the slice that brings it.
+With ``group`` (a ``torch.distributed`` ``ProcessGroup``, the counterpart
+of the JAX package's ``axis_name``) the same loop runs on each rank of a
+view-sharded call (``parallel/mesh.py::sharded_map_iters``) over the
+rank's own views: after every iteration's gradients the map-parameter
+gradients, ``grad_accum`` and ``denom`` are summed over the group in one
+collective, ``max_radii2d`` maxed, and at an opacity reset the views'
+visibility summed, before the replicated map update, which is therefore
+the same on every rank; the window pose/exposure Adam stays with the rank
+that owns the view. The caller pre-scales ``isotropic_weight`` by the
+group's size, as in the JAX package (the regulariser is added on every
+rank and its gradient summed).
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..models import gaussian_map as gm
 from ..ops import losses, se3
@@ -172,11 +182,12 @@ def _fused(cfg: RenderConfig, mcfg: MapConfig) -> bool:
             and cfg.backend == "pallas_lists")
 
 
-def _check_supported(cfg: RenderConfig, mcfg: MapConfig, axis_name):
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (the view-sharded mapping program) arrives with the "
-            "parallel slice")
+def _check_supported(cfg: RenderConfig, mcfg: MapConfig, group):
+    if group is not None and not isinstance(group, dist.ProcessGroup):
+        raise TypeError(
+            "group: expected a torch.distributed ProcessGroup (the JAX "
+            "package's axis_name is DeviceMesh.get_group(name) here), got "
+            f"{type(group).__name__}")
 
 
 def _draw(seq: Sequence, i: int):
@@ -337,6 +348,13 @@ def _sort_lists(lists):
     return out
 
 
+def _gauss_view(params: gm.ParamLeaves, active) -> GaussianArrays:
+    """The render-facing view of map parameters (JAX ``_gauss_view``)."""
+    return GaussianArrays(xyz=params.xyz, sh=params.sh,
+                          log_scale=params.log_scale, quat=params.quat,
+                          opa_logit=params.opa_logit, active=active)
+
+
 def _build_lists(m: gm.GaussianMap, Ts, intr, cfg, margin):
     gauss = m.render_view()
     return [build_tile_lists(gauss, T, intr, cfg, margin=margin) for T in Ts]
@@ -345,7 +363,7 @@ def _build_lists(m: gm.GaussianMap, Ts, intr, cfg, margin):
 def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
               generator: Optional[torch.Generator], intr: Intrinsics,
               cfg: RenderConfig, mcfg: MapConfig, hyper: gm.MapHyper,
-              kf_adam=None, initialization: bool = False, axis_name=None,
+              kf_adam=None, initialization: bool = False, group=None,
               draws: Optional[MapDraws] = None) -> MapResult:
     """Run ``n_iters`` mapping iterations over the window ``cams``.
 
@@ -357,8 +375,11 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
     retraction (not when ``initialization``), and a list rebuild when due
     (``bin_margin > 0``).
     ``kf_adam`` carries the window Adam state across calls. All tensors lie
-    on one device; ``generator`` is a ``torch.Generator`` on it."""
-    _check_supported(cfg, mcfg, axis_name)
+    on one device; ``generator`` is a ``torch.Generator`` on it. ``group``:
+    the view-sharded body (module docstring), ``cams`` the rank's views."""
+    _check_supported(cfg, mcfg, group)
+    if group is not None:
+        from ..parallel import comm
     draws = draws or MapDraws()
     dev = cams.T.device
     b = cams.T.shape[0]
@@ -481,6 +502,12 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
                 torch.exp(ls), m.active)
         (g_iso,) = torch.autograd.grad(reg, ls)
         g_leaves[2] = g_leaves[2] + g_iso
+        if group is not None:
+            # the JAX body's psum of the gradients and of the statistics,
+            # in one collective; then the pmax
+            *g_leaves, accum, denom = comm.all_reduce_flat_(
+                [*g_leaves, accum, denom], group)
+            comm.all_reduce_(radii_d, group, "max")
         m = m._replace(grad_accum=m.grad_accum + accum,
                        denom=m.denom + denom,
                        max_radii2d=torch.maximum(m.max_radii2d, radii_d))
@@ -504,6 +531,9 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
                 clone_cap=mcfg.clone_cap, split_cap=mcfg.split_cap,
                 samples=None if noise is None else noise.to(dev))
         if do_reset:
+            if not initialization and group is not None:
+                visible_any = comm.all_reduce_(visible_any.to(torch.int32),
+                                               group) > 0
             m = (gm.reset_opacity(m) if initialization
                  else gm.reset_opacity_nonvisible(m, visible_any))
 

@@ -22,11 +22,17 @@ the run's device. ``Results.use_gui`` starts the web GUI
 (``gui/slam_gui.py``) on its own thread, serving on ``Renderer.gui_port``
 (8765; 0 binds a free port, which ``SLAM.gui_port`` then holds; a port it
 cannot bind raises) and rendering on the run's device; the frontend sends it packets,
-and it gets a finish packet when the run ends. Not ported here, each
+and it gets a finish packet when the run ends.
+
+Sharded mapping (``Parallel.n_devices`` and ``gauss_devices``, the
+``parallel/`` slice): a config that asks for more than one rank gets a
+``parallel.launch.RankGroup``; ``run`` starts its worker ranks and stops
+them when it returns or fails. The process group's backend is the
+``dist_backend`` argument: None means NCCL on a CUDA device (a card per
+rank) and gloo on the CPU; "gloo" on a CUDA device shares that card among
+the ranks. NCCL is never replaced by gloo unasked. Not ported, and
 raising ``NotImplementedError``: live mode (dataset type "realsense",
-which needs pyrealsense2 and a camera) and sharded mapping
-(``Parallel.n_devices`` or ``gauss_devices`` above 1, the parallel
-slice).
+which needs pyrealsense2 and a camera).
 """
 
 from __future__ import annotations
@@ -44,7 +50,7 @@ from ..render import RenderConfig
 from ..render.camera import Intrinsics
 from ..utils.logging import Log
 from ..utils.metrics import MetricsLogger
-from .backend import BackEnd, check_parallel
+from .backend import BackEnd, check_parallel, parallel_shape
 from .draws import DrawSource
 from .frontend import FrontEnd
 from .mapping import MapConfig
@@ -201,7 +207,6 @@ def check_supported(config):
         raise NotImplementedError(
             "live mode (Dataset type 'realsense') is not ported: it needs "
             "pyrealsense2 and a connected camera")
-    check_parallel(config)
 
 
 class SLAM:
@@ -210,21 +215,29 @@ class SLAM:
     asks for the CPU, where the kernels' plain versions run). ``dataset``
     replaces the one the config names (``dataset[i] -> (image [3, H, W],
     depth [H, W] or None, T_cw)``, tensors or arrays); ``draws`` injects
-    the random draws (``DrawSource``)."""
+    the random draws (``DrawSource``). ``dist_backend`` ("nccl" or
+    "gloo"; None: NCCL on the card, gloo on the CPU) is the process
+    group's backend of a sharded-mapping config (module docstring)."""
 
     def __init__(self, config, dataset=None, save_dir=None, device="cuda",
-                 draws: Optional[DrawSource] = None):
+                 draws: Optional[DrawSource] = None,
+                 dist_backend: Optional[str] = None):
         check_supported(config)
         self.device = resolve_device(device)
+        n_view, n_gauss = parallel_shape(config)
+        self.ranks = None
+        if n_view * n_gauss > 1:
+            from ..parallel.launch import RankGroup
+
+            if dist_backend is None:
+                dist_backend = "nccl" if self.device.type == "cuda" else "gloo"
+            self.ranks = RankGroup(n_view * n_gauss, dist_backend,
+                                   self.device)
         self.config = config
         self.save_dir = save_dir
         self.monocular = config["Dataset"]["sensor_type"] == "monocular"
         config["Training"]["monocular"] = self.monocular
         self.eval_rendering_on = config["Results"].get("eval_rendering", False)
-
-        if dataset is None:
-            dataset = load_dataset(config, device=self.device)
-        self.dataset = dataset
 
         self.intr = intrinsics_from_config(config)
         self.render_cfg = render_config_from_config(config, self.intr)
@@ -232,6 +245,13 @@ class SLAM:
         self.tcfg = track_config_from_config(config)
         self.mcfg = map_config_from_config(config)
         self.hyper = map_hyper_from_config(config)
+        # a sharded config the backend cannot run raises before any data
+        # is loaded
+        check_parallel(config, self.render_cfg, self.mcfg)
+
+        if dataset is None:
+            dataset = load_dataset(config, device=self.device)
+        self.dataset = dataset
 
         rc = config.get("Renderer", {})
         gaussians = gm.new_map(rc.get("map_capacity", 1 << 17),
@@ -253,7 +273,8 @@ class SLAM:
         self.backend = BackEnd(
             config, gaussians, self.intr, self.render_cfg, self.mcfg,
             self.hyper, self.frontend_queue, self.backend_queue,
-            insert_cap=rc.get("insert_cap", 32768), draws=draws)
+            insert_cap=rc.get("insert_cap", 32768), draws=draws,
+            ranks=self.ranks)
         self.frontend.gaussians = gaussians
         self.metrics = MetricsLogger(
             save_dir=save_dir,
@@ -331,21 +352,28 @@ class SLAM:
     def run(self) -> dict:
         backend_thread = threading.Thread(target=self._backend_main,
                                           name="monogs-backend", daemon=True)
-        if self.use_gui:
-            self._start_gui()
-        t0 = time.time()
-        backend_thread.start()
+        if self.ranks is not None:
+            self.ranks.start()
         try:
+            if self.use_gui:
+                self._start_gui()
+            t0 = time.time()
+            backend_thread.start()
             self.frontend.run()
             self.backend_queue.put(["pause"])
             elapsed = time.time() - t0
             results = self._results(elapsed)
         finally:
             try:
-                self._stop_backend(backend_thread)
+                if backend_thread.ident is not None:    # started
+                    self._stop_backend(backend_thread)
             finally:
-                if self.gui_thread is not None:
-                    self._stop_gui()
+                try:
+                    if self.gui_thread is not None:
+                        self._stop_gui()
+                finally:
+                    if self.ranks is not None:
+                        self.ranks.stop()
         results["stages"] = self.stage_summary()
         self.results = results
         return results

@@ -10,7 +10,10 @@ the keyframe ATE and PSNR/SSIM/LPIPS before and after colour refinement,
 and prints the results (with the keyframe ATE also without --eval, and the
 stage split, ``SLAM.stage_summary``) as one JSON line.
 It runs on the card unless --device cpu asks for the kernels' plain
-versions on the CPU.
+versions on the CPU. A config with ``Parallel.n_devices`` or
+``gauss_devices`` above 1 maps on that many ranks: NCCL with a card each
+on the card, gloo on the CPU; ``--dist-backend gloo`` shares one card
+among them.
 """
 
 import argparse
@@ -34,6 +37,12 @@ def main(argv=None):
     parser.add_argument("--eval", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                        default=None,
+                        help="process-group backend of a config with "
+                        "Parallel.n_devices or gauss_devices above 1: nccl "
+                        "(a card per rank; the default on cuda) or gloo "
+                        "(the CPU, or ranks sharing one card)")
     args = parser.parse_args(argv)
 
     config = load_config(args.config)
@@ -58,7 +67,8 @@ def main(argv=None):
             yaml.dump(config, f)
         Log("saving results in " + save_dir)
 
-    slam = SLAM(config, save_dir=save_dir, device=args.device)
+    slam = SLAM(config, save_dir=save_dir, device=args.device,
+                dist_backend=args.dist_backend)
     results = slam.run()
     if "ate" not in results:
         # the keyframe ATE without the eval round trip

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from monogs_tpu.models import gaussian_map as jgm
 from monogs_tpu.ops import se3 as jse3
@@ -452,11 +453,15 @@ def test_color_refinement_parity():
     dict(batch_render=True, fused_grad=False),
 ])
 def test_unported_branches_raise(change):
-    """Every A/B knob is accepted; only the view-sharded program
-    (axis_name) names the slice that brings it."""
-    tmap._check_supported(TC, tmap.MapConfig(**change), None)
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        tmap._check_supported(TC, tmap.MapConfig(**change), "views")
+    """Every A/B knob is accepted, alone and with a group (a
+    ``torch.distributed`` ProcessGroup: the view-sharded body of
+    ``parallel/mesh.py``); an axis name, the JAX package's form of a
+    group, raises."""
+    mc = tmap.MapConfig(**change)
+    tmap._check_supported(TC, mc, None)
+    tmap._check_supported(TC, mc, dist.ProcessGroup(dist.HashStore(), 0, 1))
+    with pytest.raises(TypeError, match="ProcessGroup"):
+        tmap._check_supported(TC, mc, "views")
 
 
 @pytest.mark.parametrize("change", [

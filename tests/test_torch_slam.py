@@ -24,7 +24,8 @@ on the overlap threshold. On these frames the two packages part by under
 Then the port alone on the CPU: "pallas_lists" at 128x96 with the plain
 kernel versions counted (the backend is not swapped), the threaded mode
 with its dispatch pipeline, a backend failure surfacing in the caller,
-and the configs whose paths are not ported raising with their slice.
+live mode raising, and the ``Parallel`` configs constructing (on NCCL
+with too few cards, raising).
 """
 
 import copy
@@ -363,16 +364,36 @@ def test_backend_failure_surfaces(monkeypatch):
                    for th in threading.enumerate())
 
 
-@pytest.mark.parametrize("change,match", [
-    (lambda c: c.update(Parallel={"n_devices": 2}), "parallel slice"),
-    (lambda c: c.update(Parallel={"gauss_devices": 2}), "parallel slice"),
-    (lambda c: c["Dataset"].update(type="realsense"), "live mode"),
+@pytest.mark.parametrize("case", [
+    pytest.param("gloo", id="change0-parallel slice"),
+    pytest.param("nccl", id="change1-parallel slice"),
+    pytest.param("realsense", id="change2-live mode"),
 ])
-def test_unported_configs_raise(change, match):
+def test_unported_configs_raise(case, monkeypatch):
+    """Live mode raises. The ``Parallel`` configs (the parallel slice) now
+    construct: on the CPU with gloo, with their ranks not yet started; on
+    NCCL, two ranks with one card raise and name both counts."""
     cfg = trimmed_config()
-    change(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        truntime.SLAM(cfg, device="cpu")
+    if case == "realsense":
+        cfg["Dataset"].update(type="realsense")
+        with pytest.raises(NotImplementedError, match="live mode"):
+            truntime.SLAM(cfg, device="cpu")
+    elif case == "gloo":
+        for par, backend in (({"n_devices": 2}, "xla"),
+                             ({"gauss_devices": 2}, "pallas_lists")):
+            c = copy.deepcopy(cfg)
+            c["Parallel"] = par
+            c["Renderer"]["backend"] = backend
+            slam = truntime.SLAM(c, device="cpu", dist_backend="gloo")
+            assert slam.ranks.n_ranks == 2 and slam.ranks.procs == []
+            assert slam.backend.shape == (
+                par.get("n_devices", 1), par.get("gauss_devices", 1))
+    else:
+        cfg["Parallel"] = {"n_devices": 2}
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        with pytest.raises(RuntimeError, match="2 ranks on NCCL.* 1 card "):
+            truntime.SLAM(cfg, device="cuda")
 
 
 def test_slam_defaults_to_the_card(monkeypatch):
