@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, with no arguments:
 
-    python3 chip_smoke.py [--scene-seed N]
+    python3 chip_smoke.py [--scene-seed N] [--sgbm-against FILE]
 
 It needs one CUDA card and the CUDA toolkit (nvcc); it imports nothing of
 JAX. Phases, each of which exits non-zero on failure:
@@ -113,14 +113,28 @@ JAX. Phases, each of which exits non-zero on failure:
    ``FILES_RUNS``), two keyframes or more, PSNR not lower after refinement, kernels #1-#6 on
    the RGB-D runs, remap on the distorted ones, SGBM on EuRoC, ycc_rgb on
    Replica; last the remap, SGBM and ycc_rgb kernels held to their plain
-   versions and to a second launch and timed against their bounds, and
-   the PNG unfilter and nvJPEG decode timed on the host.
+   versions and to a second launch and timed against their bounds (SGBM's
+   the larger of its bytes and its integer operations), SGBM's device
+   time split by launch and the CTAs of each launch held to the card's
+   SMs, and the PNG unfilter and nvJPEG decode timed on the host; with
+   ``--sgbm-against FILE`` (another sgbm.cu, for example the parent
+   commit's) the two SGBM builds timed in turns on EuRoC's first pair,
+   and EuRoC's ``dataset[i]`` timed with each build and with the pose
+   table or a pose copied from the host;
+13. live path: live mode (``Dataset.type: realsense``) through a
+   simulated camera (``tests/sim_realsense.py``, a ``pyrealsense2``
+   stand-in serving the stock sequence rendered at 640x360 through the
+   camera's distortion): configs/live/realsense_rgbd.yaml, 12 frames,
+   threaded, the GUI forced on and one /view.jpg fetched during the run;
+   checks: the frames tracked, two keyframes or more, ``remap`` once a
+   frame, the ATE over the frames against the camera's true poses below
+   holding the first pose.
 Each path's launch counters are zeroed just before it and read just after.
 
 Output, one JSON object per line: each path's metrics, then
 ``{"kernels": [...]}`` (each kernel's time, plain time, bound, error and
 launches on its path, and on ``slam_path``, ``parallel_path`` (summed
-over the ranks), ``diag_path`` and ``files_path``; ``ms`` is
+over the ranks), ``diag_path``, ``files_path`` and ``live_path``; ``ms`` is
 the CUDA-event time of one call on an idle card, which also counts the
 card's wait for the host, and ``device_ms`` the device time of one call
 with the card kept busy), then
@@ -1871,7 +1885,10 @@ def ba_repro_path(torch, intr, cfg, scene, frames, poses, strict=True):
 # bound, 0.05 m, is scripts/verify_e2e.py's and test_slam_e2e.py's.
 SLAM_FRAMES = 16
 SLAM_ORBIT16 = dict(n_frames=16, trans_amp=0.0625, rot_amp=0.015)
-SLAM_ITERS = dict(init_itr_num=120, mapping_itr_num=30, refinement_itr=200)
+SLAM_ITERS = dict(init_itr_num=120, mapping_itr_num=30, refinement_itr=100)
+# files_path's runs refine twice as long: at 100 steps Replica's PSNR after
+# refinement fell below the PSNR before it (25.13 against 25.80 dB)
+FILES_ITERS = dict(SLAM_ITERS, refinement_itr=200)
 # (name, config, cut, ATE bound or None): the threaded mode on "first16"
 # (the stock motion, 25 mm a frame, with 30 BA iterations a keyframe)
 # drifts past the bound (PERF.md §6) and is run to record it
@@ -2706,15 +2723,18 @@ def diag_path(torch, intr, cfg, tcfg, scene, frames, poses, entries,
 # SLAM from files in the recorded datasets' layouts, written here from the
 # stock synthetic sequence (SEQUENCE: the scene of seed 0 drawn on the
 # card, 8192 Gaussians, its orbit over 64 frames) rendered at each config's
-# own calibration and width; the first FILES_FRAMES frames, SLAM_ITERS
+# own calibration and width; the first FILES_FRAMES frames, FILES_ITERS
 # depth, --eval. (name, config, ATE bound or None): TUM RGB-D is held to
 # slam_path's bound; mono, stereo and Replica must beat the ATE of holding
 # the first pose. Replica's 90-degree field of view does not track this
 # scene to 5 cm in either package: at 300x170 the JAX package parts from
 # the truth by 71 mm over the frames, the port by 46 mm (55 on the card),
 # against 31 and 36 mm at fr1's field of view
-# (scripts/port_fov_witness.py); at 1200x680 the port by 93-97 mm, while
-# the Replica config at fr1's intrinsics tracks to 32 mm (PERF.md §6, §7).
+# (scripts/port_fov_witness.py); at 600x340 both packages by 49-53 mm
+# against 58 mm for holding the first pose (--size 600x340, 8 frames); at
+# 1200x680 the port by 93-97 mm, while the Replica config at fr1's
+# intrinsics tracks to 32 mm (PERF.md §6; ROADMAP.md, reference
+# behaviours kept).
 SEQUENCE = "configs/synthetic/rgbd.yaml"
 FILES_FRAMES = 16
 FILES_RUNS = (
@@ -2728,7 +2748,7 @@ FILES_CHECK_FRAMES = 2      # frames each loader is held to its CPU path on
 # policy and the keyframe insertion, which are set for a sequence's pace
 # and for its depth of BA. With the datasets' own (1,050 init iterations,
 # a keyframe per 0.24 m at TUM's 8 mm a frame; sparse small Gaussians)
-# this 25 mm-a-frame orbit under SLAM_ITERS tracked under half of each
+# this 25 mm-a-frame orbit under FILES_ITERS tracked under half of each
 # frame's motion, from the files and from the same frames in memory alike
 # (PERF.md §6). An insertion keeps at most Renderer.insert_cap points, the
 # first in raster order, so files_config raises the cap to hold the first
@@ -3023,13 +3043,205 @@ def host_ms(fn, reps=10):
     return 1000.0 * (time.perf_counter() - t0) / reps
 
 
-def data_kernel_phase(torch, cfgs):
+# ---------------------------------------------------------------- SGBM
+
+SGBM_SPLIT_REPS = 5     # calls traced for the split of a call by launch
+SGBM_AB_ROUNDS = 3      # rounds of (this, other, other, this)
+
+
+def textured_pair(torch, dev, h=120, w=200, seed=0):
+    """A smooth random texture and its copy shifted by 5-11 px by row, as
+    a rectified uint8 pair [h, w] on ``dev``."""
+    g = torch.Generator().manual_seed(seed)
+    base = torch.nn.functional.avg_pool2d(
+        torch.rand((1, 1, h, w + 16), generator=g), 3, 1, 1)[0, 0]
+    base = ((base - base.min()) / (base.max() - base.min()) * 255).round()
+    base = base.to(torch.uint8)
+    left = base[:, :w].contiguous()
+    right = torch.stack([base[y, 5 + 6 * y // h:5 + 6 * y // h + w]
+                         for y in range(h)]).contiguous()
+    return left.to(dev), right.to(dev)
+
+
+def sgbm_build_other(path):
+    """Another ``sgbm.cu`` (``path``, for example the parent commit's, from
+    ``git show``) built with this checkout's nvcc flags under a name of
+    its own; returns a function ``(left, right) -> disparities`` that
+    calls it. It may have this checkout's C interface (five launches) or
+    the earlier one (three launches; scratch: the cost volume, the two
+    horizontal paths' int32 planes and a two-row scratch of the upper
+    paths and their minima; marked by its ``sgbm_cost_smem``)."""
+    import ctypes
+    import hashlib
+
+    import torch
+
+    from monogs_tpu_torch import _build
+
+    src = Path(path).resolve()
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    lib_path = _build.BUILD_DIR / f"libsgbm_other_{digest}.so"
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                            str(lib_path), str(src)], capture_output=True,
+                           text=True, timeout=600)
+        check(r.returncode == 0, f"building {src} failed: {r.stdout}"
+              f"{r.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    earlier = hasattr(lib, "sgbm_cost_smem")
+    lib.sgbm_run.argtypes = ([vp] * 9 + [i, i, vp] if earlier
+                             else [vp] * 7 + [i, i, vp, vp])
+    lib.sgbm_run.restype = i
+
+    def run(left, right):
+        h, w = left.shape
+        dev, n = left.device, h * (w - 64) * 64
+
+        def empty(k, dtype):
+            return torch.empty(k, dtype=dtype, device=dev)
+
+        pre = empty((h, w), torch.int16)
+        out = empty((h, w), torch.int16)
+        if earlier:
+            bufs = (empty(n, torch.int16), empty(n, torch.int32),
+                    empty(n, torch.int32),
+                    empty(6 * (w - 64) * 64, torch.int16),
+                    empty(6 * (w - 64), torch.int16))
+        else:
+            bufs = (empty(n, torch.int16), empty(5 * n, torch.int32),
+                    empty((h, w), torch.int32))
+        rc = lib.sgbm_run(left.data_ptr(), right.data_ptr(),
+                          *[b.data_ptr() for b in bufs], pre.data_ptr(),
+                          out.data_ptr(), h, w,
+                          torch.cuda.current_stream(dev).cuda_stream,
+                          *([] if earlier else [None]))
+        check(rc == 0, f"{src}: sgbm_run failed with CUDA error {rc}")
+        return out
+
+    return run
+
+
+def launch_split(torch, fn, reps=SGBM_SPLIT_REPS):
+    """Device ms of one call of ``fn`` by kernel (torch.profiler over
+    ``reps`` calls): {kernel name: ms a call}."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        m = re.search(r"(\w+_kernel)", e.key)
+        name = m.group(1) if m else e.key[:60]
+        out[name] = out.get(name, 0.0) + us / 1000.0 / reps
+    # None where CUPTI recorded no device event (as in a long process that
+    # has run torch.distributed and several traces)
+    return out or None
+
+
+SGBM_LAUNCHES = ("sgbm_cost_kernel", "sgbm_sweep_kernel",
+                 "sgbm_select_kernel", "sgbm_lr_kernel", "median3_kernel")
+
+
+def sgbm_marks_split(torch, left, right, reps=SGBM_SPLIT_REPS):
+    """Device ms of each of this checkout's five SGBM launches from CUDA
+    events that the C entry records between them (the median over
+    ``reps`` calls after one to warm up)."""
+    from monogs_tpu_torch.data import stereo
+
+    stereo._sgbm_cuda(left, right)
+    runs = []
+    for _ in range(reps):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        stereo._sgbm_cuda(left, right, marks)
+        marks[-1].synchronize()
+        runs.append([marks[i].elapsed_time(marks[i + 1]) for i in range(5)])
+    return {k: statistics.median(r[i] for r in runs)
+            for i, k in enumerate(SGBM_LAUNCHES)}
+
+
+def sgbm_ab(torch, left, right, other, rounds=SGBM_AB_ROUNDS):
+    """This checkout's SGBM against another build (``sgbm_build_other``) on
+    the same pair, in turns (this, other, other, this a round): the
+    medians of each one's ms (``cuda_ms``) and device ms (``kernel_ms``),
+    each one's split by launch (``launch_split``), and whether both give
+    the same bits."""
+    from monogs_tpu_torch.data import stereo
+
+    fns = {"this": lambda: stereo.sgbm(left, right),
+           "other": lambda: other(left, right)}
+    same = bool(torch.equal(fns["this"](), fns["other"]()))
+    times = {"this": [], "other": []}
+    for _ in range(rounds):
+        for who in ("this", "other", "other", "this"):
+            times[who].append((cuda_ms(torch, fns[who], reps=10),
+                               kernel_ms(torch, fns[who], reps=10)))
+    out = dict(same_bits=same, rounds=rounds)
+    for who, ts in times.items():
+        out[who] = dict(ms=statistics.median(t[0] for t in ts),
+                        device_ms=statistics.median(t[1] for t in ts),
+                        split=launch_split(torch, fns[who]))
+    out["device_ratio"] = out["other"]["device_ms"] / out["this"]["device_ms"]
+    return out
+
+
+def euroc_load_ms(torch, cfg, sgbm_fn=None, host_pose=False, n=8):
+    """Median ms that EuRoC's ``dataset[i]`` blocks the caller over its
+    first ``n`` frames (the first waits for the loader to start), the
+    loader's threads given 50 ms before each call to
+    decode ahead (as tracking gives them), with ``sgbm_fn`` in place of
+    the SGBM kernel and, with ``host_pose``, each pose copied from host
+    memory as the dataset did before it kept a pose table on the device
+    (a copy that waits for the kernels just launched)."""
+    import numpy as np
+
+    from monogs_tpu_torch.data import datasets, load_dataset
+
+    ds = load_dataset(cfg, "cuda")
+    if host_pose:
+        ds._pose = lambda idx: torch.as_tensor(
+            ds.poses[idx].astype(np.float32), device=ds.device)
+    saved, times = datasets.sgbm, []
+    if sgbm_fn is not None:
+        datasets.sgbm = sgbm_fn
+    try:
+        for i in range(n):
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            ds[i]
+            times.append(1000.0 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+    finally:
+        datasets.sgbm = saved
+    return statistics.median(times)
+
+
+def data_kernel_phase(torch, cfgs, sgbm_other=None):
     """The data kernels at the files path's shapes (the first TUM fr1,
     EuRoC and Replica frames) against their plain versions on the same
     inputs on the card and against a second launch, timed, with their
     bounds: the bytes they must move over the card's memory rate (for SGBM
-    the 16-bit cost volume written once and read once); the PNG unfilter
-    and nvJPEG's decode timed on the host."""
+    the larger of its bytes, the 16-bit cost volume written once and read
+    once among them, and its integer operations over the card's integer
+    rate, ``roofline.sgbm_bound``); SGBM's device time split by launch,
+    the CTAs of each launch, and with ``sgbm_other`` (another sgbm.cu) the
+    two timed in turns (``sgbm_ab``); the PNG unfilter and nvJPEG's decode
+    timed on the host."""
     from monogs_tpu_torch.data import load_dataset, png, stereo
     from monogs_tpu_torch.data.jpeg import (
         decode_planes, read_jpeg, ycc_to_rgb, ycc_to_rgb_plain,
@@ -3039,7 +3251,8 @@ def data_kernel_phase(torch, cfgs):
 
     entries, host = {}, {}
 
-    def record(name, fn, plain, nbytes, library=None, plain_reps=3):
+    def record(name, fn, plain, nbytes, library=None, plain_reps=3,
+               bound=None):
         a, b = fn(), fn()
         plain_out = []
         plain_ms = cuda_ms(torch, lambda: plain_out.append(plain()),
@@ -3051,18 +3264,21 @@ def data_kernel_phase(torch, cfgs):
         kind = name.split("@")[0]
         check(ok, f"{name}: kernel disagrees with its plain version or "
               f"itself (max abs error {err}; {KERNELS[kind][1]})")
-        bound = roofline.bytes_bound_ms(nbytes)
+        if bound is None:
+            bound = dict(bound_ms=roofline.bytes_bound_ms(nbytes),
+                         bound_by="bytes")
         entries[name] = e = dict(
             name=name, route="cuda", source=kernel_source(kind),
             replaces=KERNELS[kind][0], launches=0, max_abs_err=err,
             tol=KERNELS[kind][1], ms=cuda_ms(torch, fn),
             device_ms=kernel_ms(torch, fn), plain_ms=plain_ms,
-            bound_ms=bound, bound_by="bytes",
+            bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
             library_ms=None if library is None else cuda_ms(torch, library),
             within_tol=ok, bytes=nbytes, shape=list(a.shape))
         log(f"{name}: {e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, "
             f"plain {e['plain_ms']:.3f} ms, library {e['library_ms']}), "
-            f"bound {bound:.4f} ms by bytes")
+            f"bound {e['bound_ms']:.4f} ms by {e['bound_by']}")
+        return e
 
     tum = load_dataset(cfgs["files_tum_rgbd"], "cuda")
     euroc = load_dataset(cfgs["files_euroc_stereo"], "cuda")
@@ -3085,10 +3301,32 @@ def data_kernel_phase(torch, cfgs):
     left = remap(euroc._loader.get(0)[0], euroc.map1x, euroc.map1y)
     right = remap(euroc._loader_r.get(0)[0], euroc.map1x_r, euroc.map1y_r)
     h, w = left.shape
-    cells = h * (w - stereo.NUM_DISP) * stereo.NUM_DISP
-    record("sgbm", lambda: stereo.sgbm(left, right),
-           lambda: stereo.sgbm_plain(left, right),
-           2 * h * w + 2 * h * w + 2 * 2 * cells, plain_reps=1)
+    bound = roofline.sgbm_bound(h, w, stereo.NUM_DISP)
+    e = record("sgbm", lambda: stereo.sgbm(left, right),
+               lambda: stereo.sgbm_plain(left, right), bound["bytes"],
+               plain_reps=1, bound=bound)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    e.update(ops=bound["ops"], chain_ms=bound["chain_ms"],
+             ctas=stereo.sgbm_grids(h, w), sms=sms,
+             split=sgbm_marks_split(torch, left, right))
+    log(f"sgbm: {e['ops']} integer operations, chain floor "
+        f"{e['chain_ms']:.4f} ms; CTAs by launch {e['ctas']} on {sms} SMs; "
+        f"device ms by launch {e['split']}")
+    check(min(e["ctas"]) >= sms, f"sgbm: a launch on fewer CTAs than the "
+          f"card's {sms} SMs: {e['ctas']}")
+    if sgbm_other is not None:
+        other = sgbm_build_other(sgbm_other)
+        e["ab"] = sgbm_ab(torch, left, right, other)
+        e["ab"]["other_source"] = str(sgbm_other)
+        log(f"sgbm against {sgbm_other}: {e['ab']}")
+        check(e["ab"]["same_bits"], f"sgbm: {sgbm_other} gives other bits")
+        e["euroc_load_ms"] = {
+            f"{who}_{pose}": euroc_load_ms(torch, cfgs["files_euroc_stereo"],
+                                           other if who == "other" else None,
+                                           pose == "host")
+            for who in ("this", "other") for pose in ("table", "host")}
+        log(f"EuRoC dataset[i] ms by SGBM build and pose source: "
+            f"{e['euroc_load_ms']}")
     replica = load_dataset(cfgs["files_replica_rgbd"], "cuda")
     with open(replica.color_paths[0], "rb") as f:
         jpg = f.read()
@@ -3136,7 +3374,7 @@ def files_config(file):
     seq = load_yaml_config(SEQUENCE)
     for section, keys in SEQUENCE_KEYS.items():
         cfg[section].update((k, seq[section][k]) for k in keys)
-    cfg["Training"].update(SLAM_ITERS)
+    cfg["Training"].update(FILES_ITERS)
     cfg["Dataset"]["single_thread"] = True
     cfg["Results"].update(save_results=True, use_gui=False,
                           eval_rendering=True)
@@ -3150,7 +3388,7 @@ def files_config(file):
     return cfg
 
 
-def files_path(torch, smi):
+def files_path(torch, smi, sgbm_other=None):
     """SLAM from files on the card: each FILES_RUNS config's layout written
     from the stock synthetic sequence, its loader held to the CPU path,
     then ``SLAM(config).run()`` reading the files. Each run prints one JSON
@@ -3162,7 +3400,7 @@ def files_path(torch, smi):
 
     scene, poses = files_sequence(torch)
     summary = dict(jpeg_reference=jpeg_reference_check(torch),
-                   frames=FILES_FRAMES, iters=SLAM_ITERS)
+                   frames=FILES_FRAMES, iters=FILES_ITERS)
     total, cfgs = {}, {}
     for name, file, ate_bound in FILES_RUNS:
         root = ROOT / "build" / "files_smoke" / name / "data"
@@ -3211,10 +3449,149 @@ def files_path(torch, smi):
             need.append("ycc_rgb")
         missing = [k for k in need if not launches.get(k)]
         check(not missing, f"{name}: kernels {missing} never launched")
-    entries, summary["host_ms"] = data_kernel_phase(torch, cfgs)
+    entries, summary["host_ms"] = data_kernel_phase(torch, cfgs,
+                                                    sgbm_other)
     summary["device"] = smi
     print(json.dumps({"files_path": summary}, default=float), flush=True)
     return total, entries
+
+
+# ------------------------------------------------------------ live path
+
+# Live mode on a simulated camera (tests/sim_realsense.py): no machine of
+# this work has a RealSense camera or pyrealsense2. The shipped RGB-D live
+# config, threaded as shipped, with the sequence's keyframe policy and
+# insertion and SLAM_ITERS' BA depth (as files_path, for the same reason:
+# the simulated frames are the stock orbit, 25 mm a frame).
+LIVE_CONFIG = "configs/live/realsense_rgbd.yaml"
+LIVE_FRAMES = 12
+
+
+class LiveFrames:
+    """The live dataset, fetching the GUI's /view.jpg from the run's GUI
+    before it returns the last frame (the GUI serves from its own thread
+    while the frontend waits), and timing each ``[i]``."""
+
+    def __init__(self, ds, slam):
+        self.ds, self.slam, self.seconds, self.view = ds, slam, [], None
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, idx):
+        if idx == len(self.ds) - 1:
+            t0 = time.perf_counter()
+            body, ctype = http_get(self.slam.gui_port, "/view.jpg", 60)
+            self.view = dict(ms=1000.0 * (time.perf_counter() - t0),
+                             bytes=len(body), content_type=ctype,
+                             jpeg=body[:2] == b"\xff\xd8")
+        t0 = time.perf_counter()
+        out = self.ds[idx]
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+
+def live_path(torch, smi):
+    """Live mode (``Dataset.type: realsense``) on the card through the
+    simulated camera: the stock synthetic sequence's first LIVE_FRAMES
+    frames rendered by the port at 640x360 through the camera's
+    distortion, served by a ``pyrealsense2`` stand-in that is in
+    ``sys.modules`` only during this phase; ``SLAM(config).run()`` on
+    LIVE_CONFIG, which has no ``Calibration`` (the camera's intrinsics),
+    the GUI forced on (a free port), the dataset's length set to the
+    frame count. Checks: every frame tracked with finite poses, two
+    keyframes or more, the backend in live mode, one /view.jpg served
+    during the run, ``remap`` launched once a frame and the tracking and
+    mapping kernels launched, the ATE over the frames against the
+    camera's true poses below that of holding the first pose. Returns
+    the run's launches."""
+    import numpy as np
+
+    import importlib.util
+
+    from monogs_tpu_torch.eval.ate import evaluate_ate
+    from monogs_tpu_torch.slam.runtime import SLAM
+
+    # by its path: a package named "tests" elsewhere on the path would
+    # shadow this checkout's
+    spec = importlib.util.spec_from_file_location(
+        "sim_realsense", ROOT / "tests" / "sim_realsense.py")
+    sim = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sim)
+    t0 = time.perf_counter()
+    colors, depths, true_poses = sim.render_frames(LIVE_FRAMES, "cuda")
+    render_s = time.perf_counter() - t0
+    cfg = load_yaml_config(LIVE_CONFIG)
+    seq = load_yaml_config(SEQUENCE)
+    for section, keys in SEQUENCE_KEYS.items():
+        cfg[section].update((k, seq[section][k]) for k in keys)
+    cfg["Training"].update(init_itr_num=SLAM_ITERS["init_itr_num"],
+                           mapping_itr_num=SLAM_ITERS["mapping_itr_num"])
+    cfg.setdefault("Renderer", {})["gui_port"] = 0
+    save_dir = ROOT / "build" / "live_smoke"
+    save_dir.mkdir(parents=True, exist_ok=True)
+    with sim.installed(sim.module(colors, depths)):
+        slam = SLAM(cfg, save_dir=str(save_dir), device="cuda")
+        slam.dataset.num_imgs = LIVE_FRAMES   # a live stream reports 999999
+        frames = LiveFrames(slam.dataset, slam)
+        slam.dataset = slam.frontend.dataset = frames
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = slam.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = all_launches()
+    fe = slam.frontend
+    ids = sorted(fe.cameras)
+    poses_ok = all(bool(torch.isfinite(fe.cameras[i].T).all()) for i in ids)
+    gt = [np.linalg.inv(true_poses[i]) for i in ids]
+    c = np.stack([g[:3, 3] for g in gt])
+    track_s, track_n = res["stages"]["tracking"]
+    load_ms = [1000.0 * x for x in frames.seconds]
+    out = dict(
+        config=LIVE_CONFIG, width=slam.intr.width, height=slam.intr.height,
+        intrinsics=[slam.intr.fx, slam.intr.fy, slam.intr.cx, slam.intr.cy],
+        render_s=render_s, n_frames=res["n_frames"], fps=res["fps"],
+        seconds=seconds, live_mode=slam.backend.live_mode,
+        use_gui=slam.use_gui, gui_port=slam.gui_port, view=frames.view,
+        single_thread=cfg["Dataset"].get("single_thread", False),
+        kf_indices=fe.kf_indices,
+        tracking_ms_per_frame=1000.0 * track_s / max(track_n, 1),
+        load_ms=dict(mean=statistics.mean(load_ms), max=max(load_ms)),
+        n_active=int(slam.backend.gaussians.n_active),
+        stages=res["stages"],
+        hold_first_ate=float(np.sqrt(((c - c.mean(0)) ** 2).sum(1).mean())),
+        peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        launches={k: v for k, v in launches.items() if v}, device=smi)
+    if poses_ok:
+        est = [np.linalg.inv(fe.cameras[i].T.double().cpu().numpy())
+               for i in ids]
+        out["ate_frames"] = float(evaluate_ate(gt, est)[0])
+    print(json.dumps({"live_path": out}, default=float), flush=True)
+    log(f"live: {out['fps']:.3f} fps, keyframes {out['kf_indices']}, "
+        f"{out['tracking_ms_per_frame']:.1f} ms a frame tracking, ATE over "
+        f"the frames {out.get('ate_frames')} (holding the first pose "
+        f"{out['hold_first_ate']}), view {out['view']}")
+    check(out["n_frames"] == LIVE_FRAMES and poses_ok,
+          f"live: {out['n_frames']} frames, finite poses {poses_ok}")
+    check(len(out["kf_indices"]) >= 2, f"live: keyframes {out['kf_indices']}")
+    check(out["live_mode"] and out["use_gui"] and out["gui_port"],
+          f"live: live_mode {out['live_mode']}, GUI {out['use_gui']} on "
+          f"port {out['gui_port']}")
+    check(out["view"] is not None and out["view"]["jpeg"],
+          f"live: the GUI served no /view.jpg during the run: {out['view']}")
+    check(out["ate_frames"] < out["hold_first_ate"],
+          f"live: ATE over the frames {out['ate_frames']} m not below "
+          f"holding the first pose ({out['hold_first_ate']} m)")
+    check(launches.get("remap") == LIVE_FRAMES,
+          f"live: remap launched {launches.get('remap')} times for "
+          f"{LIVE_FRAMES} frames")
+    missing = [k for k in ("fwd_counts", "fo_grad_rgbd", "jvp8",
+                           "map_grad_rgbd") if not launches.get(k)]
+    check(not missing, f"live: kernels {missing} never launched")
+    return launches
 
 
 # ------------------------------------------------------- A/B-knob paths
@@ -3392,7 +3769,7 @@ def ab_tracking_path(torch, intr, cfg, tcfg, scene, frames, poses):
     return out
 
 
-def run(scene_seed):
+def run(scene_seed, sgbm_other=None):
     import torch
 
     if not torch.cuda.is_available():
@@ -3468,8 +3845,10 @@ def run(scene_seed):
     diag, diag_launches = timed("diag_path", diag_path, intr, cfg, tcfg,
                                 scene, frames, chain_poses, entries,
                                 slam_poses, summary["profile"])
-    files_launches, data_entries = timed("files_path", files_path, smi)
+    files_launches, data_entries = timed("files_path", files_path, smi,
+                                         sgbm_other)
     entries.update(data_entries)
+    live_launches = timed("live_path", live_path, smi)
     for name, e in entries.items():
         kind = name.split("@")[0]
         e.update((attrs32 if name.endswith("@tile32") else attrs).get(kind,
@@ -3488,6 +3867,8 @@ def run(scene_seed):
                               else diag_launches.get(kind, 0))
         e["parallel_launches"] = (0 if name.endswith("@tile32")
                                   else par_launches.get(kind, 0))
+        e["live_launches"] = (0 if name.endswith("@tile32")
+                              else live_launches.get(kind, 0))
     summary["build_s"] = build_s
     summary["build_record"] = dict(built=stats.compiled,
                                    seconds=stats.build_seconds,
@@ -3526,9 +3907,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene-seed", type=int, default=SCENE_SEED,
                     help="seed of the synthetic scene (default %(default)s)")
+    ap.add_argument("--sgbm-against", metavar="FILE",
+                    help="another sgbm.cu (for example the parent commit's) "
+                         "to time against this checkout's in turns, and "
+                         "EuRoC's dataset[i] with each")
     args = ap.parse_args()
     try:
-        run(args.scene_seed)
+        run(args.scene_seed, args.sgbm_against)
     except Failure as e:
         log(f"FAILED: {e}")
         return 1

@@ -174,8 +174,8 @@ _SIGNATURES = {
     },
     "remap": {"remap_u8": [_VP] * 4 + [_I] * 5 + [_VP]},
     "ycc_rgb": {"ycc_rgb_u8": [_VP] * 4 + [_I] * 6 + [_VP]},
-    "sgbm": {"sgbm_run": [_VP] * 9 + [_I] * 2 + [_VP],
-             "sgbm_cost_smem": [_I]},
+    "sgbm": {"sgbm_run": [_VP] * 7 + [_I] * 2 + [_VP] * 2,
+             "sgbm_grids": [_I, _I, _VP]},
     "nvjpeg_codec": {
         "jpeg_info": [_CP, _SZ] + [ctypes.POINTER(_I)] * 3,
         "jpeg_decode": [_CP, _SZ] + [_VP] * 3 + [ctypes.POINTER(_I), _VP],
@@ -184,8 +184,7 @@ _SIGNATURES = {
     },
     "png_unfilter": {"png_unfilter": [_CP, _VP] + [_I] * 3},
 }
-_RESTYPES = {"macro_scratch_bytes": ctypes.c_size_t,
-             "sgbm_cost_smem": ctypes.c_size_t}
+_RESTYPES = {"macro_scratch_bytes": ctypes.c_size_t}
 
 
 def load(path: Path, name: str) -> ctypes.CDLL:

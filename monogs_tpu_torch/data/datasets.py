@@ -198,9 +198,18 @@ class BaseDataset:
     def __len__(self):
         return self.num_imgs
 
+    def _set_poses(self, poses):
+        """Keep the parser's poses, and all of them on the device at once:
+        ``_pose`` then indexes that table, so ``dataset[i]`` never copies
+        from host memory behind the kernels it has just launched (such a
+        copy waits for them)."""
+        self.poses = poses
+        self._pose_table = torch.as_tensor(
+            np.asarray(poses, np.float32).reshape(-1, 4, 4),
+            device=self.device)
+
     def _pose(self, idx):
-        return torch.as_tensor(self.poses[idx].astype(np.float32),
-                               device=self.device)
+        return self._pose_table[idx].clone()
 
 
 class MonocularDataset(BaseDataset):
@@ -305,7 +314,7 @@ class TUMDataset(MonocularDataset):
         self.num_imgs = parser.n_img
         self.color_paths = parser.color_paths
         self.depth_paths = parser.depth_paths
-        self.poses = parser.poses
+        self._set_poses(parser.poses)
         self._setup_loader()
 
 
@@ -316,7 +325,7 @@ class ReplicaDataset(MonocularDataset):
         self.num_imgs = parser.n_img
         self.color_paths = parser.color_paths
         self.depth_paths = parser.depth_paths
-        self.poses = parser.poses
+        self._set_poses(parser.poses)
         self._setup_loader()
 
 
@@ -327,14 +336,16 @@ class EurocDataset(StereoDataset):
         self.num_imgs = parser.n_img
         self.color_paths = parser.color_paths
         self.color_paths_r = parser.color_paths_r
-        self.poses = parser.poses
+        self._set_poses(parser.poses)
         self._setup_loader()
 
 
 class RealsenseDataset(BaseDataset):
     """Live aligned colour (and depth) from a RealSense camera at fixed
-    exposure. Needs pyrealsense2 and a connected camera; the SLAM runtime
-    does not run live mode (``runtime.check_supported`` raises)."""
+    exposure, undistorted by the camera's own coefficients; the pose is
+    the identity. Needs pyrealsense2 and a connected camera. ``len`` is
+    999999 (a stream has no end): a run of a fixed length sets
+    ``num_imgs``."""
 
     def __init__(self, config, device="cuda"):
         super().__init__(config, device)

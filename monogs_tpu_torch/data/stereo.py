@@ -30,13 +30,15 @@ OpenCV's matcher give the same disparities.
   left-right check with ``disp12MaxDiff`` 1, rounding the disparity both
   ways; then the median.
 
-The kernel (``sgbm``, three launches a pair) replaces the OpenCV call of the
-JAX package, not a TPU kernel; its bound is the bytes of the cost volume
-and the path sums it moves, and it is written to be right, not fast:
-launch 1 builds the cost volume (one CTA per row, the window's column sums
-in shared memory) and runs the two horizontal paths of each row; launch 2
-is one CTA that walks the rows in order for the three paths from the row
-above, and selects each row's disparities; launch 3 is the median.
+The kernel (``sgbm``, five launches a pair, ``csrc/sgbm.cu``) replaces the
+OpenCV call of the JAX package, not a TPU kernel. It is bounded by the
+integer operations of its 21 M cells at 752x480 and by the latency of the
+path chains: launch 1 builds the cost volume (a CTA per band of rows and
+columns, the window sums running down the rows), launch 2 runs each of
+the five paths of every row, column and diagonal as one warp, launch 3
+selects each pixel's disparity, launch 4 is the left-right check and
+launch 5 the median. Scratch: the 16-bit cost volume and the five paths'
+int32 planes, allocated here.
 """
 
 from __future__ import annotations
@@ -294,30 +296,49 @@ def sgbm(left, right):
     return _sgbm_cuda(left, right)
 
 
-def _sgbm_cuda(left, right):
+def _sgbm_cuda(left, right, marks=None):
+    """The kernel's five launches; ``marks``: None, or six
+    ``torch.cuda.Event``s (enable_timing) recorded before the first launch
+    and after each, for the split of a call by launch."""
+    import ctypes
+
     from .._build import library
 
     lib = library("sgbm")
     h, w = left.shape
-    if w >= 8192 or lib.sgbm_cost_smem(w) > 227 * 1024:
-        raise ValueError(f"sgbm: width {w} is too wide for the kernel, which "
-                         "holds a row's window sums in shared memory")
+    if w >= 8192:
+        raise ValueError(f"sgbm: width {w} is too wide for the kernel, whose "
+                         "right-image match keys hold a column in 13 bits")
     left, right = left.contiguous(), right.contiguous()
     dev, n = left.device, h * (w - NUM_DISP) * NUM_DISP
     cost = torch.empty(n, dtype=torch.int16, device=dev)
-    l_lr = torch.empty(n, dtype=torch.int32, device=dev)
-    l_rl = torch.empty(n, dtype=torch.int32, device=dev)
-    rows = torch.empty(6 * (w - NUM_DISP) * NUM_DISP, dtype=torch.int16,
-                       device=dev)
-    mins = torch.empty(6 * (w - NUM_DISP), dtype=torch.int16, device=dev)
+    paths = torch.empty(5 * n, dtype=torch.int32, device=dev)
+    keys = torch.empty((h, w), dtype=torch.int32, device=dev)
     pre = torch.empty((h, w), dtype=torch.int16, device=dev)
     out = torch.empty((h, w), dtype=torch.int16, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    handles = None
+    if marks is not None:
+        for e in marks:         # creates each event on the stream's device
+            e.record(stream)
+        handles = (ctypes.c_void_p * 6)(*[e.cuda_event for e in marks])
     rc = lib.sgbm_run(left.data_ptr(), right.data_ptr(), cost.data_ptr(),
-                      l_lr.data_ptr(), l_rl.data_ptr(), rows.data_ptr(),
-                      mins.data_ptr(), pre.data_ptr(), out.data_ptr(), h, w,
-                      torch.cuda.current_stream(dev).cuda_stream)
+                      paths.data_ptr(), keys.data_ptr(), pre.data_ptr(),
+                      out.data_ptr(), h, w, stream.cuda_stream,
+                      None if handles is None else ctypes.addressof(handles))
     if rc != 0:
         raise RuntimeError(f"sgbm_run: kernel launch failed with CUDA error "
                            f"{rc}")
     count_launch(LAUNCHES, "sgbm")
     return out
+
+
+def sgbm_grids(h, w):
+    """CTAs of each of the kernel's five launches for an [h, w] pair."""
+    import ctypes
+
+    from .._build import library
+
+    ctas = (ctypes.c_int * 5)()
+    library("sgbm").sgbm_grids(h, w, ctypes.addressof(ctas))
+    return list(ctas)

@@ -17,12 +17,13 @@ instead). ``Renderer.pallas_interpret`` is read into the unused field of
 the same name.
 
 The dataset is the one ``config["Dataset"]`` names (``load_dataset``:
-TUM, Replica and EuRoC from their files, or the synthetic sequence), on
-the run's device. ``Results.use_gui`` starts the web GUI
-(``gui/slam_gui.py``) on its own thread, serving on ``Renderer.gui_port``
-(8765; 0 binds a free port, which ``SLAM.gui_port`` then holds; a port it
-cannot bind raises) and rendering on the run's device; the frontend sends it packets,
-and it gets a finish packet when the run ends.
+TUM, Replica and EuRoC from their files, a live RealSense camera, or the
+synthetic sequence), on the run's device. ``Results.use_gui`` starts the
+web GUI (``gui/slam_gui.py``) on its own thread, serving on
+``Renderer.gui_port`` (8765; 0 binds a free port, which ``SLAM.gui_port``
+then holds; a port it cannot bind raises) and rendering on the run's
+device; the frontend sends it packets, and it gets a finish packet when
+the run ends.
 
 Sharded mapping (``Parallel.n_devices`` and ``gauss_devices``, the
 ``parallel/`` slice): a config that asks for more than one rank gets a
@@ -30,9 +31,17 @@ Sharded mapping (``Parallel.n_devices`` and ``gauss_devices``, the
 them when it returns or fails. The process group's backend is the
 ``dist_backend`` argument: None means NCCL on a CUDA device (a card per
 rank) and gloo on the CPU; "gloo" on a CUDA device shares that card among
-the ranks. NCCL is never replaced by gloo unasked. Not ported, and
-raising ``NotImplementedError``: live mode (dataset type "realsense",
-which needs pyrealsense2 and a camera).
+the ranks. NCCL is never replaced by gloo unasked.
+
+Live mode (``Dataset.type: realsense``, frames from a RealSense camera
+through pyrealsense2) runs as the JAX package runs it: the GUI is always
+on, whatever ``Results.use_gui`` says, and the initial BA of a monocular
+run takes 50 iterations (``BackEnd(live_mode=True)``). The camera's
+intrinsics come from ``Dataset.Calibration`` where the config has one, as
+in the JAX package, and otherwise from the camera (``RealsenseDataset``),
+as upstream MonoGS builds its cameras from the dataset: the shipped live
+configs have no ``Calibration``, and the JAX package raises ``KeyError``
+for them before the first frame.
 """
 
 from __future__ import annotations
@@ -201,12 +210,11 @@ def map_hyper_from_config(config, spatial_lr_scale: float = 6.0) -> gm.MapHyper:
     )
 
 
-def check_supported(config):
-    """Raise for a config whose paths this port does not have yet."""
-    if config["Dataset"]["type"] == "realsense":
-        raise NotImplementedError(
-            "live mode (Dataset type 'realsense') is not ported: it needs "
-            "pyrealsense2 and a connected camera")
+def dataset_intrinsics(dataset) -> Intrinsics:
+    """The intrinsics a dataset reports (a live camera's own)."""
+    return Intrinsics(fx=float(dataset.fx), fy=float(dataset.fy),
+                      cx=float(dataset.cx), cy=float(dataset.cy),
+                      width=int(dataset.width), height=int(dataset.height))
 
 
 class SLAM:
@@ -222,7 +230,6 @@ class SLAM:
     def __init__(self, config, dataset=None, save_dir=None, device="cuda",
                  draws: Optional[DrawSource] = None,
                  dist_backend: Optional[str] = None):
-        check_supported(config)
         self.device = resolve_device(device)
         n_view, n_gauss = parallel_shape(config)
         self.ranks = None
@@ -237,9 +244,15 @@ class SLAM:
         self.save_dir = save_dir
         self.monocular = config["Dataset"]["sensor_type"] == "monocular"
         config["Training"]["monocular"] = self.monocular
+        self.live_mode = config["Dataset"]["type"] == "realsense"
         self.eval_rendering_on = config["Results"].get("eval_rendering", False)
 
-        self.intr = intrinsics_from_config(config)
+        if self.live_mode and "Calibration" not in config["Dataset"]:
+            if dataset is None:
+                dataset = load_dataset(config, device=self.device)
+            self.intr = dataset_intrinsics(dataset)
+        else:
+            self.intr = intrinsics_from_config(config)
         self.render_cfg = render_config_from_config(config, self.intr)
         self.track_render_cfg = track_render_config(config, self.render_cfg)
         self.tcfg = track_config_from_config(config)
@@ -259,7 +272,8 @@ class SLAM:
                                device=self.device)
         self.frontend_queue = queue.Queue()
         self.backend_queue = queue.Queue()
-        self.use_gui = config["Results"].get("use_gui", False)
+        self.use_gui = (config["Results"].get("use_gui", False)
+                        or self.live_mode)
         self.q_main2vis = queue.Queue() if self.use_gui else None
         self.q_vis2main = queue.Queue() if self.use_gui else None
         self.gui_thread = None
@@ -273,6 +287,7 @@ class SLAM:
         self.backend = BackEnd(
             config, gaussians, self.intr, self.render_cfg, self.mcfg,
             self.hyper, self.frontend_queue, self.backend_queue,
+            live_mode=self.live_mode,
             insert_cap=rc.get("insert_cap", 32768), draws=draws,
             ranks=self.ranks)
         self.frontend.gaussians = gaussians

@@ -4,7 +4,12 @@ Counterpart of ``monogs_tpu/utils/roofline.py``, for the port on an NVIDIA
 H100 SXM (NVIDIA's data sheet, dense rates, at the full 700 W power limit;
 a card set below it is slower, so every number names the card's limit):
 3.35 TB/s of HBM3, 67 TFLOP/s in float32 outside the tensor cores, 495
-TFLOP/s in TF32 on them (the fused steps' row sums).
+TFLOP/s in TF32 on them (the fused steps' row sums). Its integer rate is
+not on the data sheet: NVIDIA's H100 architecture white paper gives 64
+INT32 units a streaming multiprocessor, which at 132 of them and the
+1.98 GHz boost clock that the data sheet's float32 rate implies (132 x
+128 x 2 x 1.98 GHz = 67 TFLOP/s) is 16.7 T integer operations a second
+(SGBM's bound).
 
 - ``kernel_ops`` / ``kernel_tc_ops``: the analytic float32 operations of
   each port kernel's function on a run's (row, pixel) pairs, and the part
@@ -27,6 +32,9 @@ TFLOP/s in TF32 on them (the fused steps' row sums).
   under ``uncounted``.
 - ``classify`` / ``fmt``: a measured time against both peaks, with the
   JAX module's verdicts (compute-, bandwidth- or latency-bound).
+- ``sgbm_ops`` / ``sgbm_bound`` / ``sgbm_chain_ms``: the integer
+  operations of semi-global matching on an [H, W] pair, its bound, and
+  the latency of its longest chain of dependent path steps.
 
 Nothing here runs at import time; ``expf_ops`` needs the CUDA toolkit.
 """
@@ -39,6 +47,8 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12   # dense, tensor cores
+INT32_OPS_PER_S = 132 * 64 * 1.98e9     # white paper's units, boost clock
+SM_CLOCK_HZ = 1.98e9
 
 
 def kernel_tc_ops(name, n):
@@ -217,6 +227,54 @@ def kernel_bound(name, pairs, n_bytes, e_exp):
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 ops=ops, tc_ops=tc_ops)
+
+
+# SGBM's integer operations per cost-volume cell (one left pixel at one
+# disparity), as the function needs them: the Birchfield-Tomasi cost of
+# two channels (per channel 4 differences, 4 maxima with zero or each
+# other, a minimum, a shift and an add), the two window sums as running
+# sums (an add and a subtract down the rows and along the row), five path
+# steps (per step the two P1 adds, three minima, the cost added and the
+# path's minimum subtracted, its share of the minimum over disparities,
+# the 16-bit store), and the selection (the three upper paths summed,
+# two saturated adds, the least sum, the uniqueness test).
+SGBM_CELL_OPS = dict(pixel_cost=2 * 11, window_sums=4, paths=5 * 9,
+                     select=14)
+# the dependent latency of one path step, in cycles: two shuffles issued
+# together, four integer operations, the warp's minimum and the 16-bit
+# wrap (an estimate from the instructions' published latencies, not a
+# measurement)
+SGBM_STEP_CYCLES = 80
+
+
+def sgbm_ops(h, w, num_disp=64):
+    """Integer operations of SGBM on an [h, w] pair (SGBM_CELL_OPS a
+    cell of the [h, w - num_disp, num_disp] cost volume)."""
+    return sum(SGBM_CELL_OPS.values()) * h * (w - num_disp) * num_disp
+
+
+def sgbm_bound(h, w, num_disp=64):
+    """SGBM's bound on an [h, w] pair: the larger of its bytes (the two
+    images read and the disparities written once, the 16-bit cost volume
+    written once and read once) over the memory rate and its integer
+    operations over ``INT32_OPS_PER_S``. Returns a dict with ``bound_ms``,
+    ``bound_by``, ``bytes``, ``ops`` and, for information,
+    ``chain_ms``."""
+    cells = h * (w - num_disp) * num_disp
+    n_bytes = 2 * h * w + 2 * h * w + 2 * 2 * cells
+    ops = sgbm_ops(h, w, num_disp)
+    t_bytes = bytes_bound_ms(n_bytes)
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=n_bytes, ops=ops, chain_ms=sgbm_chain_ms(h, w))
+
+
+def sgbm_chain_ms(h, w, num_disp=64):
+    """The latency floor of SGBM's longest chain of dependent path steps
+    (a row's w - num_disp pixels, or a column's h) at SGBM_STEP_CYCLES a
+    step and the boost clock."""
+    return max(h, w - num_disp) * SGBM_STEP_CYCLES / SM_CLOCK_HZ * 1e3
 
 
 def launch_counters():

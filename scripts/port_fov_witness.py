@@ -4,13 +4,17 @@
 Run from the root of a checkout, on a machine with JAX on the CPU:
 
     JAX_PLATFORMS=cpu python3 scripts/port_fov_witness.py \
-        [--package jax|port] [--view replica|fr1] [--frames 16]
+        [--package jax|port] [--view replica|fr1] [--frames 16] \
+        [--size 300x170]
 
 The stock synthetic sequence (configs/synthetic/rgbd.yaml: scene seed 0,
 8192 Gaussians, its orbit) is rendered by the port on the CPU at Replica's
 field of view cut to a quarter of office0's width (300x170, fx = fy = 150,
 90 degrees across) and, as the control, at the same size with TUM fr1's
-horizontal field of view (fx = fy = 242.4, 63.5 degrees). The frames are
+horizontal field of view (fx = fy = 242.4, 63.5 degrees). ``--size``
+renders at another width and height with the same two fields of view
+(the focal length scales with the width: 600x340 gives fx = fy = 300 for
+Replica's 90 degrees), to tell what the width does. The frames are
 written as a Replica layout with OpenCV (JPEG quality 95, 16-bit depth x
 6553.5). SLAM then runs from those files on the CPU with
 configs/rgbd/replica/office0.yaml as ``chip_smoke.py``'s ``files_path``
@@ -46,14 +50,19 @@ VIEWS = {"replica": 150.0, "fr1": 242.4}
 WIDTH, HEIGHT = 300, 170
 
 
-def view_config(view):
+def focal(view, width=WIDTH):
+    """fx = fy of ``view`` at ``width``: the field of view stays."""
+    return VIEWS[view] * width / WIDTH
+
+
+def view_config(view, width=WIDTH, height=HEIGHT):
     from chip_smoke import files_config
 
     cfg = files_config("configs/rgbd/replica/office0.yaml")
-    f = VIEWS[view]
+    f = focal(view, width)
     cfg["Dataset"]["Calibration"].update(
-        width=WIDTH, height=HEIGHT, fx=f, fy=f, cx=(WIDTH - 1) / 2,
-        cy=(HEIGHT - 1) / 2)
+        width=width, height=height, fx=f, fy=f, cx=(width - 1) / 2,
+        cy=(height - 1) / 2)
     cfg["Training"]["refinement_itr"] = 0
     cfg["Results"].update(save_results=False, eval_rendering=False)
     return cfg
@@ -125,13 +134,16 @@ def ates(cameras, kf_indices):
         hold_first_ate=hold)
 
 
-def frames_dir(out_dir, view, n_frames):
-    return out_dir / f"{view}_{n_frames}"
+def frames_dir(out_dir, view, n_frames, width=WIDTH, height=HEIGHT):
+    size = "" if (width, height) == (WIDTH, HEIGHT) else f"_{width}x{height}"
+    return out_dir / f"{view}_{n_frames}{size}"
 
 
-def run(package, view, n_frames, out_dir, device="cpu"):
-    cfg = view_config(view)
-    cfg["Dataset"]["dataset_path"] = str(frames_dir(out_dir, view, n_frames))
+def run(package, view, n_frames, out_dir, device="cpu", width=WIDTH,
+        height=HEIGHT):
+    cfg = view_config(view, width, height)
+    cfg["Dataset"]["dataset_path"] = str(
+        frames_dir(out_dir, view, n_frames, width, height))
     t0 = time.perf_counter()
     if package == "jax":
         from monogs_tpu.slam.runtime import SLAM
@@ -144,8 +156,8 @@ def run(package, view, n_frames, out_dir, device="cpu"):
     slam.run()
     fe = slam.frontend
     print(json.dumps(dict(package=package, device=device, view=view,
-                          fx=VIEWS[view],
-                          width=WIDTH, height=HEIGHT, frames=len(fe.cameras),
+                          fx=focal(view, width),
+                          width=width, height=height, frames=len(fe.cameras),
                           keyframes=list(fe.kf_indices),
                           seconds=time.perf_counter() - t0,
                           **ates(fe.cameras, fe.kf_indices))), flush=True)
@@ -156,6 +168,9 @@ def main():
     ap.add_argument("--package", choices=("jax", "port"), action="append")
     ap.add_argument("--view", choices=tuple(VIEWS), action="append")
     ap.add_argument("--frames", type=int, default=16)
+    ap.add_argument("--size", default=f"{WIDTH}x{HEIGHT}",
+                    help="WIDTHxHEIGHT of the frames (the field of view "
+                         "stays)")
     ap.add_argument("--threads", type=int, default=4)
     ap.add_argument("--out", default=str(ROOT / "build" / "fov_witness"))
     ap.add_argument("--device", default="cpu",
@@ -167,15 +182,17 @@ def main():
     import torch
 
     torch.set_num_threads(args.threads)
+    width, height = (int(v) for v in args.size.split("x"))
     out_dir = Path(args.out)
     for view in args.view or tuple(VIEWS):
-        root = frames_dir(out_dir, view, args.frames)
+        root = frames_dir(out_dir, view, args.frames, width, height)
         if not (root / "traj.txt").exists():
-            write_frames(view_config(view), root, args.frames)
+            write_frames(view_config(view, width, height), root, args.frames)
         if args.write_only:
             continue
         for package in args.package or ("jax", "port"):
-            run(package, view, args.frames, out_dir, args.device)
+            run(package, view, args.frames, out_dir, args.device, width,
+                height)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,7 @@ order along K; sums over pixels in another order).
 import pytest
 import torch
 
-from chip_smoke import TF32_SPLIT_FRAC, as_f64, f64_excess
+from chip_smoke import TF32_SPLIT_FRAC, as_f64, f64_excess, textured_pair
 from monogs_tpu_torch.data.synthetic import make_synthetic_scene
 from monogs_tpu_torch.ops import se3
 from monogs_tpu_torch.render import Intrinsics, RenderConfig
@@ -570,19 +570,6 @@ def test_macro_list_too_long_is_refused(card):
 
 # ---------------------------------------------- the data loaders' kernels
 
-def textured_pair(dev, h=120, w=200, seed=0):
-    """A smooth random texture and its copy shifted by 5-11 px by row."""
-    g = torch.Generator().manual_seed(seed)
-    base = torch.nn.functional.avg_pool2d(
-        torch.rand((1, 1, h, w + 16), generator=g), 3, 1, 1)[0, 0]
-    base = ((base - base.min()) / (base.max() - base.min()) * 255).round()
-    base = base.to(torch.uint8)
-    left = base[:, :w].contiguous()
-    right = torch.stack([base[y, 5 + 6 * y // h:5 + 6 * y // h + w]
-                         for y in range(h)]).contiguous()
-    return left.to(dev), right.to(dev)
-
-
 @pytest.mark.parametrize("channels", [1, 3])
 def test_remap_on_card(card, channels):
     """The remap kernel bit for bit against its plain version, with maps
@@ -603,19 +590,26 @@ def test_remap_on_card(card, channels):
     assert torch.equal(a, b) and torch.equal(a.cpu(), want)
 
 
-@pytest.mark.parametrize("shape", [(120, 200), (33, 65)])
+@pytest.mark.parametrize("shape", [(120, 200), (33, 65), (480, 752),
+                                   (16, 8191)])
 def test_sgbm_on_card(card, shape):
-    """SGBM's three launches bit for bit against the plain version (a row
-    narrower than the window and a width of numDisparities + 1 too)."""
-    from monogs_tpu_torch.data.stereo import sgbm, sgbm_plain
+    """SGBM's five launches bit for bit against the plain version and
+    between two launches: a row narrower than the window, a width of
+    numDisparities + 1, EuRoC's 752x480 (where no launch has fewer CTAs
+    than the card has SMs) and the widest the kernel takes (its match
+    keys hold a column in 13 bits)."""
+    from monogs_tpu_torch.data.stereo import sgbm, sgbm_grids, sgbm_plain
 
-    left, right = textured_pair(card, *shape)
+    left, right = textured_pair(torch, card, *shape)
     want = sgbm_plain(left.cpu(), right.cpu())
     a, b = sgbm(left, right), sgbm(left, right)
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(a.cpu(), want)
-    if shape == (120, 200):
+    if shape in ((120, 200), (480, 752)):
         assert float((want >= 0).float().mean()) > 0.3
+    if shape == (480, 752):
+        sms = torch.cuda.get_device_properties(card).multi_processor_count
+        assert min(sgbm_grids(*shape)) >= sms, (sgbm_grids(*shape), sms)
 
 
 @pytest.mark.parametrize("sample", ["smooth", "sharp"])

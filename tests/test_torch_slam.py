@@ -24,8 +24,8 @@ on the overlap threshold. On these frames the two packages part by under
 Then the port alone on the CPU: "pallas_lists" at 128x96 with the plain
 kernel versions counted (the backend is not swapped), the threaded mode
 with its dispatch pipeline, a backend failure surfacing in the caller,
-live mode raising, and the ``Parallel`` configs constructing (on NCCL
-with too few cards, raising).
+the live config constructing on a simulated camera, and the ``Parallel``
+configs constructing (on NCCL with too few cards, raising).
 """
 
 import copy
@@ -370,14 +370,26 @@ def test_backend_failure_surfaces(monkeypatch):
     pytest.param("realsense", id="change2-live mode"),
 ])
 def test_unported_configs_raise(case, monkeypatch):
-    """Live mode raises. The ``Parallel`` configs (the parallel slice) now
-    construct: on the CPU with gloo, with their ranks not yet started; on
-    NCCL, two ranks with one card raise and name both counts."""
+    """Configs of slices ported after the first runs of this test: live
+    mode constructs from the shipped live config on a simulated camera
+    (``tests/sim_realsense.py``; ``tests/test_torch_live.py`` runs it),
+    with the GUI on, the backend in live mode and the camera's
+    intrinsics. The ``Parallel`` configs (the parallel slice) construct:
+    on the CPU with gloo, with their ranks not yet started; on NCCL, two
+    ranks with one card raise and name both counts."""
     cfg = trimmed_config()
     if case == "realsense":
-        cfg["Dataset"].update(type="realsense")
-        with pytest.raises(NotImplementedError, match="live mode"):
-            truntime.SLAM(cfg, device="cpu")
+        import sys
+
+        from monogs_tpu_torch.slam.config import load_config
+        from tests import sim_realsense as sim
+
+        monkeypatch.setitem(sys.modules, "pyrealsense2", sim.module([], []))
+        slam = truntime.SLAM(load_config("configs/live/realsense_rgbd.yaml"),
+                             device="cpu")
+        assert slam.live_mode and slam.use_gui and slam.backend.live_mode
+        assert (slam.intr.fx, slam.intr.fy, slam.intr.cx, slam.intr.cy,
+                slam.intr.width, slam.intr.height) == sim.intrinsics()
     elif case == "gloo":
         for par, backend in (({"n_devices": 2}, "xla"),
                              ({"gauss_devices": 2}, "pallas_lists")):
