@@ -6,14 +6,15 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 scripts/port_files_variants.py [--run files_replica_rgbd ...]
         [--variant sequence|full_insert|own_insert ...]
 
-Each named ``files_path`` run (default: Replica office0 and TUM fr1_desk
-RGB-D) is written from the stock synthetic sequence as ``files_path``
-writes it and run with ``files_config``'s settings changed by each
+Each named ``files_path`` run's config (default: Replica office0 and TUM
+fr1_desk RGB-D) is written from the stock synthetic sequence on its stock
+orbit (25 mm a frame; ``files_path`` writes it at TUM's pace) and run
+with ``files_config(file, "sequence")``'s settings changed by each
 variant:
 
-- ``sequence``: as ``files_path`` runs it (the sequence's keyframe policy
-  and insertion density, ``insert_cap`` raised to hold a whole
-  first-keyframe insertion at the config's width, ``map_capacity`` 2^18);
+- ``sequence``: the sequence's keyframe policy and insertion density,
+  ``insert_cap`` raised to hold a whole first-keyframe insertion at the
+  config's width, ``map_capacity`` 2^18;
 - ``capped``: the same with the config's own ``insert_cap`` and
   ``map_capacity`` (an insertion holds at most ``insert_cap`` points, the
   first in raster order, so a capped one leaves the bottom of the frame
@@ -40,7 +41,7 @@ VARIANTS = ("sequence", "capped", "own_insert")
 
 
 def variant_config(cs, file, variant):
-    cfg = cs.files_config(file)
+    cfg = cs.files_config(file, "sequence")
     own = cs.load_yaml_config(file)
     if variant == "capped":
         rc = own.get("Renderer", {})
@@ -70,8 +71,8 @@ def main():
         sys.exit("port_files_variants: needs a CUDA card")
     _build.build_all()
     smi = cs.smi_line()
-    runs = {name: file for name, file, _ in cs.FILES_RUNS}
-    scene, poses = cs.files_sequence(torch)
+    runs = {run.name: run.config for run in cs.FILES_RUNS}
+    scene, poses = cs.files_sequence(torch, motion="stock")
     for name in args.run or ("files_replica_rgbd", "files_tum_rgbd"):
         for variant in args.variant or VARIANTS:
             cfg = variant_config(cs, runs[name], variant)

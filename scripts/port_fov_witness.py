@@ -58,7 +58,7 @@ def focal(view, width=WIDTH):
 def view_config(view, width=WIDTH, height=HEIGHT):
     from chip_smoke import files_config
 
-    cfg = files_config("configs/rgbd/replica/office0.yaml")
+    cfg = files_config("configs/rgbd/replica/office0.yaml", "sequence")
     f = focal(view, width)
     cfg["Dataset"]["Calibration"].update(
         width=width, height=height, fx=f, fy=f, cx=(width - 1) / 2,

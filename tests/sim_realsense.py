@@ -52,20 +52,25 @@ def intrinsics():
     return FX, FY, CX, CY, WIDTH, HEIGHT
 
 
-def render_frames(n_frames, device="cpu"):
+def render_frames(n_frames, device="cpu", motion="orbit"):
     """The first ``n_frames`` of the stock synthetic sequence as the
     camera delivers them: ([H, W, 3] BGR uint8, [H, W] uint16) arrays, and
-    the true world-to-camera poses [4, 4] float64."""
+    the true world-to-camera poses [4, 4] float64. ``motion`` "tum_like"
+    moves along the orbit at TUM's pace (``tum_like_amps`` over the
+    sequence's frames, as ``SyntheticDataset``'s "tum_like" motion)
+    instead of its own amplitudes."""
     import torch
 
     from monogs_tpu_torch.data.layouts import raw_maps
     from monogs_tpu_torch.data.synthetic import (
-        make_synthetic_scene, orbit_pose,
+        make_synthetic_scene, orbit_pose, tum_like_amps,
     )
     from monogs_tpu_torch.render import Intrinsics, RenderConfig, render
     from monogs_tpu_torch.slam.config import load_config
 
     syn = load_config(str(SEQUENCE))["Dataset"]["synthetic"]
+    amps = ((syn["trans_amp"], syn["rot_amp"]) if motion == "orbit"
+            else tum_like_amps(syn["n_frames"]))
     dev = torch.device(device)
     scene = make_synthetic_scene(
         torch.Generator(device=dev).manual_seed(syn["seed"]),
@@ -86,8 +91,7 @@ def render_frames(n_frames, device="cpu"):
     xn, yn = mx.round().long(), my.round().long()
     colors, depths, poses = [], [], []
     for i in range(n_frames):
-        T = orbit_pose(i / syn["n_frames"], syn["trans_amp"], syn["rot_amp"],
-                       device=dev)
+        T = orbit_pose(i / syn["n_frames"], *amps, device=dev)
         with torch.no_grad():
             out = render(scene, T, wide, cfg)
         img = out.image.clamp(0, 1).permute(1, 2, 0)

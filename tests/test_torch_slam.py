@@ -2,7 +2,7 @@
 
 The slice as a whole: a deterministic ``single_thread`` run of
 ``test_slam_e2e.tiny_config`` trimmed to its first 6 frames (init 20,
-mapping 5, first order 10, second order 2 iterations; renderer "xla")
+mapping 5, first order 10, second order 1 iteration; renderer "xla")
 through both packages, on the JAX synthetic dataset's frames as numpy,
 with the JAX key chain replayed through a ``DrawSource`` (``JaxDraws``).
 Tolerances: keyframes and windows equal; ``n_active`` within 0.5 % (equal
@@ -179,7 +179,7 @@ def trimmed_config(sensor="depth"):
     tr["init_itr_num"] = 20
     tr["mapping_itr_num"] = 5
     tr["RGN"]["first_order"]["max_iter"] = 10
-    tr["RGN"]["second_order"]["max_iter"] = 2
+    tr["RGN"]["second_order"]["max_iter"] = 1
     return cfg
 
 
