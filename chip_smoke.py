@@ -118,16 +118,24 @@ JAX. Phases, each of which exits non-zero on failure:
    stereo and Replica, two keyframes or more (or, on a row that names
    them, the keyframes both packages take), PSNR not lower after
    refinement, kernels #1-#6 on the RGB-D runs, remap on the
-   distorted ones, SGBM on EuRoC, ycc_rgb on Replica; last the remap,
-   SGBM and ycc_rgb kernels held to their plain versions and to a second
-   launch and timed against their bounds (SGBM's
-   the larger of its bytes and its integer operations), SGBM's device
-   time split by launch and the CTAs of each launch held to the card's
-   SMs, and the PNG unfilter and nvJPEG decode timed on the host; with
+   distorted TUM ones, on EuRoC ``remap_pair`` once a frame loaded (both
+   eyes in one launch) and no ``remap``, SGBM on EuRoC, ycc_rgb on
+   Replica; last the remap, remap_pair, SGBM and ycc_rgb kernels held to
+   their plain versions and to a second launch and timed against their
+   bounds (SGBM's the larger of its bytes and its integer operations),
+   ``grid_sample``'s ms, device ms and host µs beside remap's, an empty
+   kernel's device ms on one CTA and on each remap and ycc_rgb grid, the
+   host µs of each step of one remap wrapper call (the parent's wrapper
+   and this one), SGBM's device time split by launch and the CTAs of each
+   launch held to the card's SMs, the PNG unfilter's calls over the runs,
+   and the PNG unfilter and nvJPEG decode timed on the host; with
    ``--sgbm-against FILE`` (another sgbm.cu, for example the parent
    commit's) the two SGBM builds timed in turns on EuRoC's first pair,
    and EuRoC's ``dataset[i]`` timed with each build and with the pose
-   table or a pose copied from the host;
+   table or a pose copied from the host; with ``--remap-against FILE`` /
+   ``--ycc-against FILE`` (another remap.cu / ycc_rgb.cu) each timed in
+   turns against this checkout's through the parent's wrapper, the bits
+   held equal;
 13. live path: live mode (``Dataset.type: realsense``) through a
    simulated camera (``tests/sim_realsense.py``, a ``pyrealsense2``
    stand-in serving the stock sequence at TUM's pace rendered at 640x360
@@ -244,6 +252,10 @@ KERNELS.update({
     "remap": (f"{DATA}:235 (cv2.remap INTER_LINEAR; also :311-314)",
               "bit for bit against the plain version; two launches "
               "bit-identical"),
+    "remap_pair": (f"{DATA}:311-314 (cv2.remap of both eyes of a stereo "
+                   "pair)",
+                   "bit for bit against two plain remaps; two launches "
+                   "bit-identical"),
     "sgbm": (f"{DATA}:315-319 (cv2.StereoSGBM compute)",
              "disparities bit for bit against the plain version; two "
              "launches bit-identical"),
@@ -252,12 +264,14 @@ KERNELS.update({
                 "bit for bit against the plain version; two launches "
                 "bit-identical"),
 })
-DATA_KERNELS = ("remap", "sgbm", "ycc_rgb")
+# each data kernel's source
+DATA_KERNELS = {"remap": "remap", "remap_pair": "remap", "sgbm": "sgbm",
+                "ycc_rgb": "ycc_rgb"}
 
 
 def kernel_source(kind):
     name = ("blend_macros" if kind in MACRO_KERNELS
-            else kind if kind in DATA_KERNELS else "blend_lists")
+            else DATA_KERNELS.get(kind, "blend_lists"))
     return f"monogs_tpu_torch/csrc/{name}.cu"
 
 SHAPE = dict(fx=535.4, fy=539.2, cx=320.1, cy=247.6, width=640, height=480)
@@ -3085,7 +3099,8 @@ def files_run(torch, name, cfg, smi):
         sensor=cfg["Dataset"]["sensor_type"],
         width=cfg["Dataset"]["Calibration"]["width"],
         height=cfg["Dataset"]["Calibration"]["height"],
-        n_frames=res["n_frames"], fps=res["fps"], seconds=seconds,
+        n_frames=res["n_frames"], loads=len(timed.seconds), fps=res["fps"],
+        seconds=seconds,
         ate=res["ate"], single_thread=cfg["Dataset"]["single_thread"],
         before=res["before"], after=res["after"],
         n_active=int(slam.backend.gaussians.n_active),
@@ -3152,6 +3167,35 @@ def textured_pair(torch, dev, h=120, w=200, seed=0):
     return left.to(dev), right.to(dev)
 
 
+def build_sources(sources):
+    """Build each CUDA source of ``sources`` ({name: path}) with this
+    checkout's nvcc flags under a name of its own
+    (``lib<name>_<digest>.so`` in the build directory), one nvcc a source,
+    all started together, the ones built before reused; returns {name:
+    ctypes.CDLL}."""
+    import ctypes
+    import hashlib
+
+    from monogs_tpu_torch import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths, jobs = {}, {}
+    for name, path in sources.items():
+        src = Path(path).resolve()
+        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+        paths[name] = _build.BUILD_DIR / f"lib{name}_{digest}.so"
+        if not paths[name].exists():
+            jobs[name] = subprocess.Popen(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                 str(paths[name]), str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+    for name, proc in jobs.items():
+        out = proc.communicate(timeout=600)[0]
+        check(proc.returncode == 0, f"building {sources[name]} failed: "
+              f"{out}")
+    return {name: ctypes.CDLL(str(p)) for name, p in paths.items()}
+
+
 def sgbm_build_other(path):
     """Another ``sgbm.cu`` (``path``, for example the parent commit's, from
     ``git show``) built with this checkout's nvcc flags under a name of
@@ -3161,23 +3205,11 @@ def sgbm_build_other(path):
     horizontal paths' int32 planes and a two-row scratch of the upper
     paths and their minima; marked by its ``sgbm_cost_smem``)."""
     import ctypes
-    import hashlib
 
     import torch
 
-    from monogs_tpu_torch import _build
-
     src = Path(path).resolve()
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    lib_path = _build.BUILD_DIR / f"libsgbm_other_{digest}.so"
-    if not lib_path.exists():
-        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        r = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
-                            str(lib_path), str(src)], capture_output=True,
-                           text=True, timeout=600)
-        check(r.returncode == 0, f"building {src} failed: {r.stdout}"
-              f"{r.stderr}")
-    lib = ctypes.CDLL(str(lib_path))
+    lib = build_sources({"sgbm_other": src})["sgbm_other"]
     vp, i = ctypes.c_void_p, ctypes.c_int
     earlier = hasattr(lib, "sgbm_cost_smem")
     lib.sgbm_run.argtypes = ([vp] * 9 + [i, i, vp] if earlier
@@ -3288,6 +3320,307 @@ def sgbm_ab(torch, left, right, other, rounds=SGBM_AB_ROUNDS):
     return out
 
 
+# ------------------------------------------------- remap and ycc_rgb
+
+DATA_AB_ROUNDS = 3      # rounds of turns (a, b, .., b, a)
+SPLIT_REPS, SPLIT_BATCHES = 200, 10     # host timing of wrapper steps
+
+# an empty kernel launched through ctypes as the data kernels are: the
+# floor of one launch, on one CTA or on a kernel's grid of 256-thread CTAs
+EMPTY_KERNEL = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int gx, int gy, cudaStream_t stream) {
+  empty_kernel<<<dim3(gx, gy), 256, 0, stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def data_build(remap_other=None, ycc_other=None):
+    """The empty kernel and, where given, another ``remap.cu`` and
+    ``ycc_rgb.cu`` (for example the parent commit's, from ``git show``;
+    their C interfaces, ``remap_u8`` and ``ycc_rgb_u8``, are unchanged),
+    built together; returns {name: ctypes.CDLL} with their argument
+    types set."""
+    import ctypes
+
+    from monogs_tpu_torch import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    empty = _build.BUILD_DIR / "empty_kernel.cu"
+    empty.write_text(EMPTY_KERNEL)
+    sources = {"empty_kernel": empty, "remap_other": remap_other,
+               "ycc_rgb_other": ycc_other}
+    libs = build_sources({k: v for k, v in sources.items() if v})
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    types = {"empty_launch": [i, i, vp], "remap_u8": [vp] * 4 + [i] * 5 + [vp],
+             "ycc_rgb_u8": [vp] * 4 + [i] * 6 + [vp]}
+    for lib in libs.values():
+        for fn, argtypes in types.items():
+            if hasattr(lib, fn):
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = i
+    return libs
+
+
+def empty_launcher(torch, lib, grid=(1, 1)):
+    from monogs_tpu_torch import _build
+
+    dev = torch.cuda.current_device()
+
+    def run():
+        rc = lib.empty_launch(*grid, _build.stream_handle(dev))
+        if rc != 0:
+            raise Failure(f"empty_launch failed with CUDA error {rc}")
+    return run
+
+
+def parent_remap(lib):
+    """The parent commit's ``remap`` wrapper, step for step, around
+    ``lib``'s ``remap_u8``: ``(img, map_x, map_y) -> out``; and its steps
+    on one call as {name: function of no arguments} for
+    ``wrapper_split``."""
+    import torch
+
+    from monogs_tpu_torch.render.blend_lists import count_launch
+
+    counts = {"remap": 0}
+
+    def check_args(img, map_x, map_y):
+        if img.dtype != torch.uint8 or img.dim() not in (2, 3):
+            raise ValueError("remap: img")
+        for m in (map_x, map_y):
+            if (m.dtype != torch.float32 or m.shape != map_x.shape
+                    or m.dim() != 2 or m.device != img.device):
+                raise ValueError("remap: maps")
+
+    def library():
+        from monogs_tpu_torch._build import library as lookup
+
+        lookup("remap")     # the parent's lookup; the launch takes ``lib``
+        return lib
+
+    def call(img, map_x, map_y):
+        check_args(img, map_x, map_y)
+        if img.device.type != "cuda":
+            raise ValueError("remap: the parent's kernel runs on the card")
+        kernels = library()
+        img = img.contiguous()
+        map_x, map_y = map_x.contiguous(), map_y.contiguous()
+        h, w = img.shape[:2]
+        c = img.shape[2] if img.dim() == 3 else 1
+        out = torch.empty(tuple(map_x.shape) + tuple(img.shape[2:]),
+                          dtype=torch.uint8, device=img.device)
+        rc = kernels.remap_u8(
+            img.data_ptr(), map_x.data_ptr(), map_y.data_ptr(),
+            out.data_ptr(), h, w, map_x.shape[0], map_x.shape[1], c,
+            torch.cuda.current_stream(img.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"remap_u8: CUDA error {rc}")
+        count_launch(counts, "remap")
+        return out
+
+    def steps(img, map_x, map_y):
+        out = call(img, map_x, map_y)
+        c = img.shape[2] if img.dim() == 3 else 1
+        stream = torch.cuda.current_stream(img.device).cuda_stream
+        ptrs = (img.data_ptr(), map_x.data_ptr(), map_y.data_ptr(),
+                out.data_ptr())
+        return {
+            "check": lambda: check_args(img, map_x, map_y),
+            "import_library": library,
+            "contiguous_x3": lambda: (img.contiguous(), map_x.contiguous(),
+                                      map_y.contiguous()),
+            "shape_args": lambda: (img.shape[:2], img.dim(),
+                                   tuple(map_x.shape) + tuple(img.shape[2:])),
+            "torch_empty": lambda: torch.empty(
+                tuple(map_x.shape) + tuple(img.shape[2:]),
+                dtype=torch.uint8, device=img.device),
+            "current_stream": lambda: torch.cuda.current_stream(
+                img.device).cuda_stream,
+            "data_ptr_x4": lambda: (img.data_ptr(), map_x.data_ptr(),
+                                    map_y.data_ptr(), out.data_ptr()),
+            "ctypes_launch": lambda: lib.remap_u8(
+                *ptrs, img.shape[0], img.shape[1], map_x.shape[0],
+                map_x.shape[1], c, stream),
+            "count_launch": lambda: count_launch(counts, "remap"),
+        }
+
+    return call, steps
+
+
+def this_remap_steps(img, maps):
+    """This checkout's ``remap`` wrapper on ``Maps``, step for step, as
+    {name: function of no arguments} for ``wrapper_split``."""
+    from monogs_tpu_torch import _build
+    from monogs_tpu_torch.data import undistort
+    from monogs_tpu_torch.render.blend_lists import count_launch
+
+    counts = {"remap": 0}
+    out = undistort.remap(img, maps)
+    lib = _build.library("remap")
+    c = img.shape[2] if img.dim() == 3 else 1
+    ptrs = (img.data_ptr(), maps.x.data_ptr(), maps.y.data_ptr(),
+            out.data_ptr())
+    stream = _build.stream_handle(maps.device)
+    return {
+        "check": lambda: undistort._check(img, maps),
+        "contiguous": img.contiguous,
+        "new_empty": lambda: img.new_empty(maps.x.shape + img.shape[2:]),
+        "library": lambda: _build.library("remap"),
+        "stream_handle": lambda: _build.stream_handle(maps.device),
+        "data_ptr_x4": lambda: (img.data_ptr(), maps.x.data_ptr(),
+                                maps.y.data_ptr(), out.data_ptr()),
+        "ctypes_launch": lambda: lib.remap_u8(
+            *ptrs, img.shape[0], img.shape[1], maps.x.shape[0],
+            maps.x.shape[1], c, stream),
+        "count_launch": lambda: count_launch(counts, "remap"),
+    }
+
+
+def host_us(torch, fn, reps=SPLIT_REPS, batches=SPLIT_BATCHES):
+    """Host microseconds a call of ``fn`` takes (``time.perf_counter_ns``):
+    the median over ``batches`` of ``reps`` calls, the card synchronised
+    between batches, so that the launches queued never make the host
+    wait."""
+    fn()
+    per = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter_ns()
+        for _ in range(reps):
+            fn()
+        per.append((time.perf_counter_ns() - t0) / reps / 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(per)
+
+
+def wrapper_split(torch, steps, whole):
+    """Host µs of each step of a wrapper call (``steps``: {name: function
+    of no arguments}) and of the ``whole`` call, each timed alone by
+    ``host_us``; ``sum`` the steps' total."""
+    out = {name: host_us(torch, fn) for name, fn in steps.items()}
+    out["sum"] = sum(out.values())
+    out["whole"] = host_us(torch, whole)
+    return out
+
+
+def turns(torch, fns, rounds=DATA_AB_ROUNDS):
+    """The functions ``fns`` ({name: function of no arguments}) timed in
+    turns, each round in order and back (a, b, .., b, a): the median of
+    each one's ms (``cuda_ms``) and device ms (``kernel_ms``)."""
+    order = list(fns) + list(fns)[::-1]
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name in order:
+            times[name].append((cuda_ms(torch, fns[name], reps=10),
+                                kernel_ms(torch, fns[name], reps=10)))
+    return {name: dict(ms=statistics.median(t[0] for t in ts),
+                       device_ms=statistics.median(t[1] for t in ts))
+            for name, ts in times.items()}
+
+
+def remap_ab(torch, img, maps, other, rounds=DATA_AB_ROUNDS):
+    """This checkout's ``remap`` (``Maps``) against the parent's wrapper and
+    kernel (``parent_remap``'s call, on ``other``) on one image, in turns,
+    and whether both give the same bits."""
+    from monogs_tpu_torch.data.undistort import remap
+
+    fns = {"this": lambda: remap(img, maps),
+           "other": lambda: other(img, maps.x, maps.y)}
+    out = turns(torch, fns, rounds)
+    out.update(same_bits=bool(torch.equal(fns["this"](), fns["other"]())),
+               rounds=rounds)
+    out["device_ratio"] = out["other"]["device_ms"] / out["this"]["device_ms"]
+    return out
+
+
+def parent_ycc(lib):
+    """The parent commit's ``ycc_to_rgb`` wrapper, step for step, around
+    ``lib``'s ``ycc_rgb_u8``: ``(y, cb, cr) -> out``."""
+    import torch
+
+    from monogs_tpu_torch.data.jpeg import _factors
+    from monogs_tpu_torch.render.blend_lists import count_launch
+
+    counts = {"ycc_rgb": 0}
+
+    def call(y, cb=None, cr=None):
+        from monogs_tpu_torch._build import library  # noqa: F401
+
+        height, width = y.shape
+        sy, sx, ch, cw = 1, 1, 0, 0
+        if cb is not None:
+            sy, sx = _factors(cb.shape, height, width)
+            ch, cw = cb.shape
+        planes = [None if p is None else p.contiguous() for p in (y, cb, cr)]
+        out = torch.empty((height, width, 3), dtype=torch.uint8,
+                          device=y.device)
+        rc = lib.ycc_rgb_u8(
+            *(None if p is None else p.data_ptr() for p in planes),
+            out.data_ptr(), height, width, ch, cw, sx, sy,
+            torch.cuda.current_stream(y.device).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"ycc_rgb_u8: CUDA error {rc}")
+        count_launch(counts, "ycc_rgb")
+        return out
+
+    return call
+
+
+def ycc_ab(torch, planes, other, rounds=DATA_AB_ROUNDS):
+    """This checkout's ``ycc_to_rgb`` against the parent's wrapper and
+    kernel (``parent_ycc``'s call) on one frame's planes, in turns, and
+    whether both give the same bits."""
+    from monogs_tpu_torch.data.jpeg import ycc_to_rgb
+
+    fns = {"this": lambda: ycc_to_rgb(*planes),
+           "other": lambda: other(*planes)}
+    out = turns(torch, fns, rounds)
+    out.update(same_bits=bool(torch.equal(fns["this"](), fns["other"]())),
+               rounds=rounds)
+    out["device_ratio"] = out["other"]["device_ms"] / out["this"]["device_ms"]
+    return out
+
+
+def grid_of(w, h, per_thread):
+    """The CTAs (x, y) of a remap (``per_thread`` 1) or ycc_rgb (4) launch
+    at output width ``w`` and height ``h``: 32 threads of ``per_thread``
+    pixels by 8 rows each."""
+    threads = -(-w // per_thread)
+    return (-(-threads // 32), -(-h // 8))
+
+
+def grid_sample(torch, raws, maps):
+    """One ``grid_sample`` call over the images ``raws`` (one shape) through
+    ``maps`` (``Maps``, one for each), remap's yardstick: bilinear, zeros
+    outside, in float (no rounding)."""
+    h, w = raws[0].shape[:2]
+    src = torch.stack([r.float().permute(2, 0, 1) if r.dim() == 3
+                       else r.float()[None] for r in raws])
+    grid = torch.stack([torch.stack([m.x / (w - 1) * 2 - 1,
+                                     m.y / (h - 1) * 2 - 1], -1)
+                        for m in maps])
+    return lambda: torch.nn.functional.grid_sample(
+        src, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+
+def dataset_maps(torch, config, device="cuda"):
+    """The ``Maps`` that the dataset of ``config`` (a path under the repo)
+    builds from its calibration alone: TUM's one, EuRoC's two (cam0,
+    cam1)."""
+    from monogs_tpu_torch.data.datasets import (
+        MonocularDataset, StereoDataset,
+    )
+
+    cfg = load_yaml_config(config)
+    if cfg["Dataset"]["type"] == "euroc":
+        ds = StereoDataset(cfg, device)
+        return [ds.maps, ds.maps_r]
+    return [MonocularDataset(cfg, device).maps]
+
+
 def euroc_load_ms(torch, cfg, sgbm_fn=None, host_pose=False, n=8):
     """Median ms that EuRoC's ``dataset[i]`` blocks the caller over its
     first ``n`` frames (the first waits for the loader to start), the
@@ -3320,25 +3653,39 @@ def euroc_load_ms(torch, cfg, sgbm_fn=None, host_pose=False, n=8):
     return statistics.median(times)
 
 
-def data_kernel_phase(torch, cfgs, sgbm_other=None):
+def data_kernel_phase(torch, cfgs, sgbm_other=None, remap_other=None,
+                      ycc_other=None):
     """The data kernels at the files path's shapes (the first TUM fr1,
     EuRoC and Replica frames) against their plain versions on the same
     inputs on the card and against a second launch, timed, with their
     bounds: the bytes they must move over the card's memory rate (for SGBM
     the larger of its bytes, the 16-bit cost volume written once and read
     once among them, and its integer operations over the card's integer
-    rate, ``roofline.sgbm_bound``); SGBM's device time split by launch,
+    rate, ``roofline.sgbm_bound``); ``grid_sample``'s ms and device ms
+    beside remap's, and an empty kernel's device ms on one CTA and on
+    each remap and ycc_rgb grid (the floor of a launch); the host µs of
+    each step of one remap wrapper call, the parent's wrapper and this
+    checkout's (``wrapper_split``); with ``remap_other`` / ``ycc_other``
+    (another remap.cu / ycc_rgb.cu) each timed in turns against this
+    checkout's with the parent's wrapper around it (``remap_ab``,
+    ``ycc_ab``), the bits held equal; SGBM's device time split by launch,
     the CTAs of each launch, and with ``sgbm_other`` (another sgbm.cu) the
     two timed in turns (``sgbm_ab``); the PNG unfilter and nvJPEG's decode
     timed on the host."""
+    from monogs_tpu_torch import _build
     from monogs_tpu_torch.data import load_dataset, png, stereo
     from monogs_tpu_torch.data.jpeg import (
         decode_planes, read_jpeg, ycc_to_rgb, ycc_to_rgb_plain,
     )
-    from monogs_tpu_torch.data.undistort import remap, remap_plain
+    from monogs_tpu_torch.data.undistort import remap, remap_pair, remap_plain
     from monogs_tpu_torch.utils import roofline
 
     entries, host = {}, {}
+
+    def device_ms(fn):
+        # the median of three kernel_ms: a kernel of a few microseconds
+        # reads ten times too long when the host stalls while it enqueues
+        return statistics.median(kernel_ms(torch, fn) for _ in range(3))
 
     def record(name, fn, plain, nbytes, library=None, plain_reps=3,
                bound=None):
@@ -3346,10 +3693,13 @@ def data_kernel_phase(torch, cfgs, sgbm_other=None):
         plain_out = []
         plain_ms = cuda_ms(torch, lambda: plain_out.append(plain()),
                            reps=plain_reps, warmup=0)
-        p = plain_out[-1]
+        a, b, p = (x if isinstance(x, tuple) else (x,)
+                   for x in (a, b, plain_out[-1]))
         torch.cuda.synchronize()
-        ok = torch.equal(a, b) and torch.equal(a, p)
-        err = float((a.int() - p.int()).abs().max())
+        ok = all(torch.equal(x, y) and torch.equal(x, z)
+                 for x, y, z in zip(a, b, p))
+        err = max(float((x.int() - z.int()).abs().max())
+                  for x, z in zip(a, p))
         kind = name.split("@")[0]
         check(ok, f"{name}: kernel disagrees with its plain version or "
               f"itself (max abs error {err}; {KERNELS[kind][1]})")
@@ -3360,35 +3710,84 @@ def data_kernel_phase(torch, cfgs, sgbm_other=None):
             name=name, route="cuda", source=kernel_source(kind),
             replaces=KERNELS[kind][0], launches=0, max_abs_err=err,
             tol=KERNELS[kind][1], ms=cuda_ms(torch, fn),
-            device_ms=kernel_ms(torch, fn), plain_ms=plain_ms,
+            device_ms=device_ms(fn), plain_ms=plain_ms,
             bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
             library_ms=None if library is None else cuda_ms(torch, library),
-            within_tol=ok, bytes=nbytes, shape=list(a.shape))
+            library_device_ms=None if library is None else device_ms(library),
+            within_tol=ok, bytes=nbytes, shape=list(a[0].shape))
         log(f"{name}: {e['ms']:.4f} ms (device {e['device_ms']:.4f} ms, "
-            f"plain {e['plain_ms']:.3f} ms, library {e['library_ms']}), "
-            f"bound {e['bound_ms']:.4f} ms by {e['bound_by']}")
+            f"plain {e['plain_ms']:.3f} ms, library {e['library_ms']} "
+            f"(device {e['library_device_ms']})), bound "
+            f"{e['bound_ms']:.4f} ms by {e['bound_by']}")
         return e
+
+    libs = data_build(remap_other, ycc_other)
+    empty = empty_launcher(torch, libs["empty_kernel"])
+    floor = dict(one_cta=kernel_ms(torch, empty),
+                 host_us=host_us(torch, empty))
+
+    def floor_on(e, w, h, per_thread=1):
+        grid = grid_of(w, h, per_thread)
+        e["empty_device_ms"] = dict(one_cta=floor["one_cta"], grid=kernel_ms(
+            torch, empty_launcher(torch, libs["empty_kernel"], grid)),
+            ctas=grid[0] * grid[1], host_us_one_cta=floor["host_us"])
+        log(f"{e['name']}: an empty kernel {e['empty_device_ms']} device ms")
 
     tum = load_dataset(cfgs["files_tum_rgbd"], "cuda")
     euroc = load_dataset(cfgs["files_euroc_stereo"], "cuda")
-    pairs = (("remap", tum._loader.get(0)[0], tum.map1x, tum.map1y),
-             ("remap@euroc", euroc._loader.get(0)[0], euroc.map1x,
-              euroc.map1y))
-    for name, raw, mx, my in pairs:
-        h, w = raw.shape[:2]
-        # grid_sample: bilinear, zeros outside, in float (no rounding)
-        src = (raw.float().permute(2, 0, 1)[None] if raw.dim() == 3
-               else raw.float()[None, None])
-        grid = torch.stack([mx / (w - 1) * 2 - 1, my / (h - 1) * 2 - 1],
-                           -1)[None]
-        record(name, lambda r=raw, x=mx, y=my: remap(r, x, y),
-               lambda r=raw, x=mx, y=my: remap_plain(r, x, y),
-               2 * raw.numel() + 2 * 4 * mx.numel(),
-               library=lambda s=src, g=grid: torch.nn.functional.grid_sample(
-                   s, g, mode="bilinear", padding_mode="zeros",
-                   align_corners=True))
-    left = remap(euroc._loader.get(0)[0], euroc.map1x, euroc.map1y)
-    right = remap(euroc._loader_r.get(0)[0], euroc.map1x_r, euroc.map1y_r)
+    left_raw = euroc._loader.get(0)[0]
+    right_raw = euroc._loader_r.get(0)[0]
+    for name, raw, maps in (("remap", tum._loader.get(0)[0], tum.maps),
+                            ("remap@euroc", left_raw, euroc.maps)):
+        e = record(name, lambda r=raw, m=maps: remap(r, m),
+                   lambda r=raw, m=maps: remap_plain(r, m.x, m.y),
+                   2 * raw.numel() + 2 * 4 * maps.x.numel(),
+                   library=grid_sample(torch, [raw], [maps]))
+        floor_on(e, maps.x.shape[1], maps.x.shape[0])
+        e["host_us"] = dict(
+            this=host_us(torch, lambda r=raw, m=maps: remap(r, m)),
+            library=host_us(torch, grid_sample(torch, [raw], [maps])))
+        log(f"{name}: host us a call {e['host_us']}")
+        if "remap_other" in libs:
+            e["ab"] = remap_ab(torch, raw, maps,
+                               parent_remap(libs["remap_other"])[0])
+            e["ab"]["other_source"] = str(remap_other)
+            log(f"{name} against {remap_other}: {e['ab']}")
+            check(e["ab"]["same_bits"], f"{name}: {remap_other} gives "
+                  "other bits")
+    # where one remap call's host time goes: the parent's wrapper (around
+    # the parent's kernel where given, else this checkout's, whose C
+    # interface it shares) and this checkout's, step by step
+    raw, maps = tum._loader.get(0)[0], tum.maps
+    call, steps = parent_remap(libs.get("remap_other")
+                               or _build.library("remap"))
+    entries["remap"]["wrapper_us"] = split = dict(
+        parent=wrapper_split(torch, steps(raw, maps.x, maps.y),
+                             lambda: call(raw, maps.x, maps.y)),
+        this=wrapper_split(torch, this_remap_steps(raw, maps),
+                           lambda: remap(raw, maps)))
+    log(f"remap wrapper host us by step: {split}")
+    e = record("remap_pair",
+               lambda: remap_pair(left_raw, euroc.maps, right_raw,
+                                  euroc.maps_r),
+               lambda: (remap_plain(left_raw, euroc.maps.x, euroc.maps.y),
+                        remap_plain(right_raw, euroc.maps_r.x,
+                                    euroc.maps_r.y)),
+               2 * (2 * left_raw.numel() + 2 * 4 * euroc.maps.x.numel()),
+               library=grid_sample(torch, [left_raw, right_raw],
+                                   [euroc.maps, euroc.maps_r]))
+    floor_on(e, euroc.maps.x.shape[1], euroc.maps.x.shape[0])
+    pair = remap_pair(left_raw, euroc.maps, right_raw, euroc.maps_r)
+    two = (remap(left_raw, euroc.maps), remap(right_raw, euroc.maps_r))
+    check(all(torch.equal(x, y) for x, y in zip(pair, two)),
+          "remap_pair: other bits than two remap calls")
+    e["against_two"] = turns(torch, {
+        "pair": lambda: remap_pair(left_raw, euroc.maps, right_raw,
+                                   euroc.maps_r),
+        "two": lambda: (remap(left_raw, euroc.maps),
+                        remap(right_raw, euroc.maps_r))})
+    log(f"remap_pair against two remap calls: {e['against_two']}")
+    left, right = pair
     h, w = left.shape
     bound = roofline.sgbm_bound(h, w, stereo.NUM_DISP)
     e = record("sgbm", lambda: stereo.sgbm(left, right),
@@ -3420,9 +3819,21 @@ def data_kernel_phase(torch, cfgs, sgbm_other=None):
     with open(replica.color_paths[0], "rb") as f:
         jpg = f.read()
     planes = decode_planes(jpg, "cuda")
-    record("ycc_rgb", lambda: ycc_to_rgb(*planes),
-           lambda: ycc_to_rgb_plain(*planes),
-           4 * planes[0].numel() + 2 * planes[1].numel())
+    e = record("ycc_rgb", lambda: ycc_to_rgb(*planes),
+               lambda: ycc_to_rgb_plain(*planes),
+               4 * planes[0].numel() + 2 * planes[1].numel())
+    floor_on(e, planes[0].shape[1], planes[0].shape[0], per_thread=4)
+    parent = parent_ycc(libs.get("ycc_rgb_other")
+                        or _build.library("ycc_rgb"))
+    e["wrapper_us"] = dict(parent=host_us(torch, lambda: parent(*planes)),
+                           this=host_us(torch, lambda: ycc_to_rgb(*planes)))
+    log(f"ycc_rgb wrapper host us: {e['wrapper_us']}")
+    if "ycc_rgb_other" in libs:
+        e["ab"] = ycc_ab(torch, planes, parent_ycc(libs["ycc_rgb_other"]))
+        e["ab"]["other_source"] = str(ycc_other)
+        log(f"ycc_rgb against {ycc_other}: {e['ab']}")
+        check(e["ab"]["same_bits"], f"ycc_rgb: {ycc_other} gives other "
+              "bits")
     # the host's memory rate for the PNG unfilter's bound (one thread, as
     # the unfilter runs: a row depends on the row above): a memcpy of
     # 256 MiB between two buffers touched first, best of 5, its bytes read
@@ -3537,10 +3948,16 @@ def files_run_checked(torch, run, cfg, written, smi, extra):
         # the blend VJP (#5) runs in the colour refinement
         need += ["fwd", "fwd_counts", "fo_grad_rgbd", "jvp8",
                  "map_grad_rgbd", "bwd"]
-    if ds["Calibration"]["distorted"]:
-        need.append("remap")
     if ds["sensor_type"] == "stereo":
         need.append("sgbm")
+        # both eyes of a frame in one launch
+        check(launches.get("remap_pair") == out["loads"]
+              and not launches.get("remap"),
+              f"{run.name}: remap_pair launched {launches.get('remap_pair')} "
+              f"times and remap {launches.get('remap')} for "
+              f"{out['loads']} frames loaded (one remap_pair a frame)")
+    elif ds["Calibration"]["distorted"]:
+        need.append("remap")
     if ds["type"] == "replica":
         need.append("ycc_rgb")
     missing = [k for k in need if not launches.get(k)]
@@ -3548,7 +3965,8 @@ def files_run_checked(torch, run, cfg, written, smi, extra):
     return launches
 
 
-def files_path(torch, smi, sgbm_other=None):
+def files_path(torch, smi, sgbm_other=None, remap_other=None,
+               ycc_other=None):
     """SLAM from files on the card: each FILES_RUNS config's layout written
     once from the stock synthetic sequence at TUM's pace, its loader held
     to the CPU path, then ``SLAM(config).run()`` reading the files, once a
@@ -3585,8 +4003,9 @@ def files_path(torch, smi, sgbm_other=None):
                                      smi, extra)
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
-    entries, summary["host_ms"] = data_kernel_phase(torch, cfgs,
-                                                    sgbm_other)
+    entries, summary["host_ms"] = data_kernel_phase(
+        torch, cfgs, sgbm_other, remap_other, ycc_other)
+    summary["png_unfilter_calls"] = total.get("png_unfilter", 0)
     summary["device"] = smi
     print(json.dumps({"files_path": summary}, default=float), flush=True)
     return total, entries
@@ -3910,7 +4329,7 @@ def ab_tracking_path(torch, intr, cfg, tcfg, scene, frames, poses):
     return out
 
 
-def run(scene_seed, sgbm_other=None):
+def run(scene_seed, sgbm_other=None, remap_other=None, ycc_other=None):
     import torch
 
     if not torch.cuda.is_available():
@@ -3987,7 +4406,7 @@ def run(scene_seed, sgbm_other=None):
                                 scene, frames, chain_poses, entries,
                                 slam_poses, summary["profile"])
     files_launches, data_entries = timed("files_path", files_path, smi,
-                                         sgbm_other)
+                                         sgbm_other, remap_other, ycc_other)
     entries.update(data_entries)
     live_launches = timed("live_path", live_path, smi)
     for name, e in entries.items():
@@ -4052,9 +4471,16 @@ def main():
                     help="another sgbm.cu (for example the parent commit's) "
                          "to time against this checkout's in turns, and "
                          "EuRoC's dataset[i] with each")
+    ap.add_argument("--remap-against", metavar="FILE",
+                    help="another remap.cu (for example the parent "
+                         "commit's) to time against this checkout's in "
+                         "turns, the bits held equal")
+    ap.add_argument("--ycc-against", metavar="FILE",
+                    help="another ycc_rgb.cu, likewise")
     args = ap.parse_args()
     try:
-        run(args.scene_seed, args.sgbm_against)
+        run(args.scene_seed, args.sgbm_against, args.remap_against,
+            args.ycc_against)
     except Failure as e:
         log(f"FAILED: {e}")
         return 1

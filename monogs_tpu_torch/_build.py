@@ -172,7 +172,8 @@ _SIGNATURES = {
         "macro_scratch_bytes": [_I] * 6,
         "macro_attrs": [_I, _VP],
     },
-    "remap": {"remap_u8": [_VP] * 4 + [_I] * 5 + [_VP]},
+    "remap": {"remap_u8": [_VP] * 4 + [_I] * 5 + [_VP],
+              "remap_pair_u8": [_VP] * 8 + [_I] * 5 + [_VP]},
     "ycc_rgb": {"ycc_rgb_u8": [_VP] * 4 + [_I] * 6 + [_VP]},
     "sgbm": {"sgbm_run": [_VP] * 7 + [_I] * 2 + [_VP] * 2,
              "sgbm_grids": [_I, _I, _VP]},
@@ -207,3 +208,12 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _LIBS[name] = load(path, name)
     return lib
+
+
+def stream_handle(index: int) -> int:
+    """PyTorch's current CUDA stream on the device of ``index`` for this
+    thread, as the handle the libraries' entries take: one call, with no
+    device lookup or stream object."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -33,7 +33,9 @@ from ..render.camera import Intrinsics, focal2fov
 from .native_loader import make_loader
 from .stereo import sgbm
 from .synthetic import SyntheticDataset
-from .undistort import init_undistort_rectify_map, remap
+from .undistort import (
+    check_maps, init_undistort_rectify_map, remap, remap_pair,
+)
 
 
 def quaternion_matrix(q_wxyz):
@@ -235,6 +237,7 @@ class MonocularDataset(BaseDataset):
                 for m in init_undistort_rectify_map(
                     self.K, self.dist_coeffs, np.eye(3), self.K,
                     (self.width, self.height)))
+            self.maps = check_maps(self.map1x, self.map1y)
         self.has_depth = "depth_scale" in calibration
         self.depth_scale = calibration.get("depth_scale")
 
@@ -246,7 +249,7 @@ class MonocularDataset(BaseDataset):
     def __getitem__(self, idx):
         rgb, depth_raw = self._loader.get(idx)
         if self.disorted:
-            rgb = remap(rgb, self.map1x, self.map1y)
+            rgb = remap(rgb, self.maps)
         depth = None
         if self.has_depth and depth_raw is not None:
             depth = (depth_raw.to(torch.float64) / self.depth_scale).to(
@@ -283,6 +286,8 @@ class StereoDataset(BaseDataset):
                 camera_matrix(cam1opt), size))
         (self.map1x, self.map1y, self.map1x_r, self.map1y_r) = (
             torch.from_numpy(m).to(self.device) for m in maps)
+        self.maps = check_maps(self.map1x, self.map1y)
+        self.maps_r = check_maps(self.map1x_r, self.map1y_r)
         self.disorted = calibration["distorted"]
         self.has_depth = True
         # following ORB-SLAM2's EuRoC config: baseline * fx
@@ -296,8 +301,8 @@ class StereoDataset(BaseDataset):
         image, _ = self._loader.get(idx)
         image_r, _ = self._loader_r.get(idx)
         if self.disorted:
-            image = remap(image, self.map1x, self.map1y)
-            image_r = remap(image_r, self.map1x_r, self.map1y_r)
+            image, image_r = remap_pair(image, self.maps, image_r,
+                                        self.maps_r)
         disparity = sgbm(image, image_r).to(torch.float64) / 16.0
         disparity = torch.where(disparity == 0,
                                 torch.full_like(disparity, 1e10), disparity)
@@ -389,6 +394,7 @@ class RealsenseDataset(BaseDataset):
             for m in init_undistort_rectify_map(
                 self.K, self.dist_coeffs, np.eye(3), self.K,
                 (self.w, self.h)))
+        self.maps = check_maps(self.map1x, self.map1y)
         self.has_depth = config["Dataset"]["sensor_type"] == "depth"
         if self.has_depth:
             self.depth_scale = (
@@ -402,7 +408,7 @@ class RealsenseDataset(BaseDataset):
         rgb = torch.from_numpy(np.ascontiguousarray(bgr[..., ::-1])).to(
             self.device)
         if self.disorted:
-            rgb = remap(rgb, self.map1x, self.map1y)
+            rgb = remap(rgb, self.maps)
         depth = None
         if self.has_depth:
             raw = np.array(aligned.get_depth_frame().get_data())

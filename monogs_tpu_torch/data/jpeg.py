@@ -4,8 +4,9 @@ On the card a frame is decoded by nvJPEG (``csrc/nvjpeg_codec.cpp``, a
 ``ctypes`` library linked with the CUDA toolkit's ``libnvjpeg``) into
 uint8 device planes at the stream's own subsampling (Huffman on the host,
 the inverse DCT on the card); the kernel ``csrc/ycc_rgb.cu``
-(``ycc_to_rgb``) then upsamples the chroma and converts to RGB as libjpeg
-does, beside its plain version ``ycc_to_rgb_plain``. nvJPEG's own
+(``ycc_to_rgb``, four pixels a thread) then upsamples the chroma and
+converts to RGB as libjpeg does, beside its plain version
+``ycc_to_rgb_plain``. nvJPEG's own
 upsampling and conversion differ from libjpeg's by up to 12 LSB on the
 mean on sharp 4:2:0 chroma; with libjpeg's, the two decoders differ only
 by their inverse DCTs. On the CPU a frame is decoded by ``cv2``, the JAX
@@ -22,7 +23,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import _build, resolve_device
 from ..render.blend_lists import count_launch
 
 QUALITY = 95      # the encoder's quality, as the fixtures are written
@@ -102,20 +103,29 @@ def ycc_to_rgb_plain(y, cb=None, cr=None):
 def ycc_to_rgb(y, cb=None, cr=None):
     """``ycc_to_rgb_plain``'s result: the kernel on CUDA tensors, else the
     plain version."""
-    if y.device.type != "cuda":
+    if not y.is_cuda:
         return ycc_to_rgb_plain(y, cb, cr)
-    from .._build import library
-
+    if y.dtype != torch.uint8 or y.dim() != 2:
+        raise ValueError(f"ycc_to_rgb: luma must be [H, W] uint8, got "
+                         f"{y.dtype} {tuple(y.shape)}")
     height, width = y.shape
+    dev = y.get_device()
     sy, sx, ch, cw = 1, 1, 0, 0
     if cb is not None:
-        sy, sx = _factors(cb.shape, height, width)
+        if (cb.dtype != torch.uint8 or cr.dtype != torch.uint8
+                or cb.dim() != 2 or cr.shape != cb.shape
+                or cb.get_device() != dev or cr.get_device() != dev):
+            raise ValueError("ycc_to_rgb: chroma must be two [ch, cw] uint8 "
+                             "planes on the luma's device")
         ch, cw = cb.shape
-    planes = [None if p is None else p.contiguous() for p in (y, cb, cr)]
-    out = torch.empty((height, width, 3), dtype=torch.uint8, device=y.device)
-    rc = library("ycc_rgb").ycc_rgb_u8(
-        *(None if p is None else p.data_ptr() for p in planes),
-        out.data_ptr(), height, width, ch, cw, sx, sy, _stream(y.device))
+        sy, sx = _factors(cb.shape, height, width)
+        cb, cr = cb.contiguous(), cr.contiguous()
+    y = y.contiguous()
+    out = y.new_empty((height, width, 3))
+    rc = _build.library("ycc_rgb").ycc_rgb_u8(
+        y.data_ptr(), None if cb is None else cb.data_ptr(),
+        None if cr is None else cr.data_ptr(), out.data_ptr(), height, width,
+        ch, cw, sx, sy, _build.stream_handle(dev))
     if rc != 0:
         raise RuntimeError(f"ycc_rgb_u8: kernel launch failed with CUDA "
                            f"error {rc}")
@@ -124,9 +134,7 @@ def ycc_to_rgb(y, cb=None, cr=None):
 
 
 def _lib():
-    from .._build import library
-
-    return library("nvjpeg_codec")
+    return _build.library("nvjpeg_codec")
 
 
 def _raise_on(rc: int, fn: str):

@@ -20,7 +20,12 @@ import zlib
 
 import numpy as np
 
+from ..render.blend_lists import count_launch
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+# calls of the host routine, counted as the kernels' launches are
+LAUNCHES = {"png_unfilter": 0}
 
 # (bit depth, colour type) -> (channels stored, channels kept)
 _FORMS = {(8, 2): (3, 3), (8, 0): (1, 1), (16, 0): (1, 1), (8, 6): (4, 3)}
@@ -112,6 +117,7 @@ def unfilter_native(raw: bytes, height: int, row_bytes: int, bpp: int):
         raw, out.ctypes.data_as(ctypes.c_void_p), height, row_bytes, bpp)
     if rc:
         raise PNGError(f"unknown PNG filter type in row {rc - 1}")
+    count_launch(LAUNCHES, "png_unfilter")
     return out
 
 

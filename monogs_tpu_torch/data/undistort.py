@@ -5,8 +5,9 @@
 float64 numpy (radial k1, k2, k3 and tangential p1, p2, after R^-1 and
 K_new^-1), computed once per dataset. ``remap`` samples a uint8 image
 through such maps as ``cv2.remap(.., INTER_LINEAR)`` with border value 0
-does: the CUDA kernel ``csrc/remap.cu`` (one thread per output pixel, all
-channels) on the card, beside its plain PyTorch version, which the CPU
+does: the CUDA kernel ``csrc/remap.cu`` (one thread per output pixel,
+all channels; ``remap_pair`` takes both images of a stereo pair in one
+launch) on the card, beside its plain PyTorch version, which the CPU
 path runs. Both compute in float32, two lerps along x and one along y,
 rounded half to even, as OpenCV does, so they agree bit for bit with each
 other and, on the datasets' maps, with OpenCV within 1 LSB on a few
@@ -15,12 +16,15 @@ values in a million.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from .. import _build
 from ..render.blend_lists import count_launch
 
-LAUNCHES = {"remap": 0}
+LAUNCHES = {"remap": 0, "remap_pair": 0}
 
 
 def reset_launches():
@@ -76,40 +80,91 @@ def remap_plain(img, map_x, map_y):
     return out if img.dim() == 3 else out[..., 0]
 
 
-def _check(img, map_x, map_y):
-    if img.dtype != torch.uint8 or img.dim() not in (2, 3):
-        raise ValueError(f"remap: img must be [H, W] or [H, W, C] uint8, "
-                         f"got {img.dtype} {tuple(img.shape)}")
+class Maps(NamedTuple):
+    """A pair of maps checked once (``check_maps``): ``x`` and ``y``
+    float32 [H', W'], contiguous, on the device of index ``device`` (-1:
+    the CPU). The datasets check theirs where they build them, so that a
+    frame's ``remap`` checks only the image."""
+    x: torch.Tensor
+    y: torch.Tensor
+    device: int
+
+
+def check_maps(map_x, map_y) -> Maps:
     for name, m in (("map_x", map_x), ("map_y", map_y)):
-        if (m.dtype != torch.float32 or m.shape != map_x.shape
-                or m.dim() != 2 or m.device != img.device):
+        if (m.dtype != torch.float32 or m.dim() != 2
+                or m.shape != map_x.shape or m.device != map_x.device):
             raise ValueError(f"remap: {name} must be [H, W] float32 on "
-                             f"{img.device} like map_x")
+                             f"{map_x.device} like map_x")
+    return Maps(map_x.contiguous(), map_y.contiguous(), map_x.get_device())
 
 
-def remap(img, map_x, map_y):
-    """Bilinear remap with border value 0 (``cv2.remap``, INTER_LINEAR):
-    the kernel on a CUDA tensor, else the plain version."""
-    _check(img, map_x, map_y)
-    if img.device.type != "cuda":
-        return remap_plain(img, map_x, map_y)
-    from .._build import library
+def _check(img, maps):
+    if not isinstance(maps, Maps):
+        raise TypeError("remap: give map_x and map_y, or Maps from "
+                        "check_maps")
+    if (img.dtype != torch.uint8 or img.dim() not in (2, 3)
+            or img.get_device() != maps.device):
+        raise ValueError(f"remap: img must be [H, W] or [H, W, C] uint8 on "
+                         f"the maps' device, got {img.dtype} "
+                         f"{tuple(img.shape)} on {img.device}")
 
-    img = img.contiguous()
-    map_x, map_y = map_x.contiguous(), map_y.contiguous()
-    h, w = img.shape[:2]
-    c = img.shape[2] if img.dim() == 3 else 1
-    out = torch.empty(tuple(map_x.shape) + tuple(img.shape[2:]),
-                      dtype=torch.uint8, device=img.device)
-    rc = library("remap").remap_u8(
-        img.data_ptr(), map_x.data_ptr(), map_y.data_ptr(), out.data_ptr(),
-        h, w, map_x.shape[0], map_x.shape[1], c,
-        torch.cuda.current_stream(img.device).cuda_stream)
+
+def _raise_on(rc, fn):
     if rc != 0:
-        raise RuntimeError(f"remap_u8: kernel launch failed with CUDA error "
+        raise RuntimeError(f"{fn}: kernel launch failed with CUDA error "
                            f"{rc}")
+
+
+def remap(img, map_x, map_y=None):
+    """Bilinear remap with border value 0 (``cv2.remap``, INTER_LINEAR)
+    through ``map_x`` and ``map_y``, or through ``Maps`` in ``map_x``
+    alone: the kernel on a CUDA tensor, else the plain version."""
+    maps = map_x if map_y is None else check_maps(map_x, map_y)
+    _check(img, maps)
+    if not img.is_cuda:
+        return remap_plain(img, maps.x, maps.y)
+    img = img.contiguous()
+    out = img.new_empty(maps.x.shape + img.shape[2:])
+    _raise_on(_build.library("remap").remap_u8(
+        img.data_ptr(), maps.x.data_ptr(), maps.y.data_ptr(), out.data_ptr(),
+        img.shape[0], img.shape[1], maps.x.shape[0], maps.x.shape[1],
+        img.shape[2] if img.dim() == 3 else 1,
+        _build.stream_handle(maps.device)), "remap_u8")
     count_launch(LAUNCHES, "remap")
     return out
+
+
+def remap_pair(img0, maps0, img1, maps1):
+    """``(remap(img0, *maps0), remap(img1, *maps1))``, a stereo pair: in one
+    launch on CUDA tensors, else two plain remaps. Each maps is ``Maps``
+    or ``(map_x, map_y)``; the two images, and the two maps, must have one
+    shape."""
+    maps0, maps1 = (m if isinstance(m, Maps) else check_maps(*m)
+                    for m in (maps0, maps1))
+    _check(img0, maps0)
+    _check(img1, maps1)
+    if (img1.shape != img0.shape or maps1.x.shape != maps0.x.shape
+            or maps1.device != maps0.device):
+        raise ValueError(f"remap_pair: images {tuple(img0.shape)} and "
+                         f"{tuple(img1.shape)}, maps "
+                         f"{tuple(maps0.x.shape)} and "
+                         f"{tuple(maps1.x.shape)}: the images, and the "
+                         "maps, must have one shape and one device")
+    if not img0.is_cuda:
+        return (remap_plain(img0, maps0.x, maps0.y),
+                remap_plain(img1, maps1.x, maps1.y))
+    img0, img1 = img0.contiguous(), img1.contiguous()
+    shape = maps0.x.shape + img0.shape[2:]
+    out0, out1 = img0.new_empty(shape), img1.new_empty(shape)
+    _raise_on(_build.library("remap").remap_pair_u8(
+        img0.data_ptr(), maps0.x.data_ptr(), maps0.y.data_ptr(),
+        out0.data_ptr(), img1.data_ptr(), maps1.x.data_ptr(),
+        maps1.y.data_ptr(), out1.data_ptr(), img0.shape[0], img0.shape[1],
+        shape[0], shape[1], img0.shape[2] if img0.dim() == 3 else 1,
+        _build.stream_handle(maps0.device)), "remap_pair_u8")
+    count_launch(LAUNCHES, "remap_pair")
+    return out0, out1
 
 
 def undistort_points(pts, K, dist, R, P, iters=20):

@@ -278,12 +278,13 @@ def sgbm_chain_ms(h, w, num_disp=64):
 
 
 def launch_counters():
-    """The launch counters of the kernel modules (one dict each)."""
-    from ..data import jpeg, stereo, undistort
+    """The launch counters of the kernel modules (one dict each), and the
+    PNG unfilter's calls (host code)."""
+    from ..data import jpeg, png, stereo, undistort
     from ..render import blend_lists, blend_macros
 
     return (blend_lists.LAUNCHES, blend_macros.LAUNCHES, undistort.LAUNCHES,
-            stereo.LAUNCHES, jpeg.LAUNCHES)
+            stereo.LAUNCHES, jpeg.LAUNCHES, png.LAUNCHES)
 
 
 def all_launches():

@@ -570,24 +570,77 @@ def test_macro_list_too_long_is_refused(card):
 
 # ---------------------------------------------- the data loaders' kernels
 
+def remap_case(case, channels, dev, seed=0):
+    """(image, Maps) of a remap case on ``dev``: random maps that leave the
+    image on every side ("small"; "odd" and "one" at widths that are not a
+    multiple of 4; "wide" at EuRoC's 752x480) or the maps that TUM fr1_desk's
+    (640x480) and EuRoC mh02's cam0 (752x480) datasets build ("tum",
+    "euroc")."""
+    from chip_smoke import dataset_maps
+    from monogs_tpu_torch.data.undistort import check_maps
+
+    g = torch.Generator().manual_seed(channels + 10 * seed)
+    src, dst = {"small": ((37, 53), (41, 59)), "odd": ((30, 61), (33, 65)),
+                "one": ((3, 2), (1, 1)), "wide": ((480, 752), (480, 752)),
+                "tum": ((480, 640), None), "euroc": ((480, 752), None)}[case]
+    img = torch.randint(0, 256, src + ((3,) if channels == 3 else ()),
+                        generator=g, dtype=torch.uint8).to(dev)
+    if dst is None:
+        config = {"tum": "configs/rgbd/tum/fr1_desk.yaml",
+                  "euroc": "configs/stereo/euroc/mh02.yaml"}[case]
+        return img, dataset_maps(torch, config, dev)[0]
+    ys, xs = torch.meshgrid(torch.arange(float(dst[0])),
+                            torch.arange(float(dst[1])), indexing="ij")
+    sx, sy = (src[1] + 6) / dst[1], (src[0] + 6) / dst[0]
+    maps = [xs * sx - 4 + 0.7 * torch.rand(xs.shape, generator=g),
+            ys * sy - 3 + 0.7 * torch.rand(ys.shape, generator=g)]
+    if case == "one":      # inside, between the taps
+        maps = [torch.tensor([[0.6]]), torch.tensor([[1.3]])]
+    return img, check_maps(*(m.to(dev) for m in maps))
+
+
+@pytest.mark.parametrize("case", ["small", "odd", "one", "wide", "tum",
+                                  "euroc"])
 @pytest.mark.parametrize("channels", [1, 3])
-def test_remap_on_card(card, channels):
-    """The remap kernel bit for bit against its plain version, with maps
-    that leave the image on every side, two launches alike."""
+def test_remap_on_card(card, channels, case):
+    """The remap kernel bit for bit against its plain version at the
+    shapes it must handle (widths not a multiple of 4, 1x1, TUM's
+    and EuRoC's frames through their datasets' maps, maps that leave the
+    image on every side), through ``Maps`` and through
+    (map_x, map_y), two launches alike."""
     from monogs_tpu_torch.data.undistort import remap, remap_plain
 
-    g = torch.Generator().manual_seed(channels)
-    shape = (37, 53, 3) if channels == 3 else (37, 53)
-    img = torch.randint(0, 256, shape, generator=g, dtype=torch.uint8)
-    ys, xs = torch.meshgrid(torch.arange(41.0), torch.arange(59.0),
-                            indexing="ij")
-    mx = xs * 1.1 - 4 + 0.7 * torch.rand(xs.shape, generator=g)
-    my = ys * 1.05 - 3 + 0.7 * torch.rand(ys.shape, generator=g)
-    want = remap_plain(img, mx, my)
-    a = remap(img.to(card), mx.to(card), my.to(card))
-    b = remap(img.to(card), mx.to(card), my.to(card))
+    img, maps = remap_case(case, channels, card)
+    want = remap_plain(img.cpu(), maps.x.cpu(), maps.y.cpu())
+    a = remap(img, maps)
+    b = remap(img, maps.x, maps.y)
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(a.cpu(), want)
+
+
+@pytest.mark.parametrize("case", ["small", "odd", "euroc"])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_remap_pair_on_card(card, channels, case):
+    """``remap_pair`` (one launch) gives the bits of two ``remap`` calls,
+    on EuRoC's two eyes through their datasets' maps and on random maps;
+    it counts one launch; a pair of other shapes raises."""
+    from chip_smoke import dataset_maps
+    from monogs_tpu_torch.data import undistort
+
+    img0, maps0 = remap_case(case, channels, card)
+    img1, maps1 = remap_case(case, channels, card, seed=1)
+    if case == "euroc":
+        maps1 = dataset_maps(torch, "configs/stereo/euroc/mh02.yaml",
+                             card)[1]
+    before = dict(undistort.LAUNCHES)
+    pair = undistort.remap_pair(img0, maps0, img1, maps1)
+    assert undistort.LAUNCHES["remap_pair"] == before["remap_pair"] + 1
+    assert undistort.LAUNCHES["remap"] == before["remap"]
+    two = (undistort.remap(img0, maps0), undistort.remap(img1, maps1))
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, t) for p, t in zip(pair, two))
+    with pytest.raises(ValueError, match="one shape"):
+        undistort.remap_pair(img0, maps0, img1[:-1], maps1)
 
 
 @pytest.mark.parametrize("shape", [(120, 200), (33, 65), (480, 752),
@@ -635,24 +688,37 @@ def test_nvjpeg_on_card(card, sample):
     ).mean() < 3.0
 
 
-def test_ycc_rgb_kernel_matches_plain(card):
+@pytest.mark.parametrize("shape", [(680, 1200), (480, 640), (480, 752),
+                                   (35, 51), (33, 65), (481, 752), (9, 3),
+                                   (6, 2), (7, 4), (8, 8), (1, 1)])
+def test_ycc_rgb_kernel_matches_plain(card, shape):
     """The upsampling and colour conversion kernel equals its plain
-    version bit for bit at every subsampling it takes, odd sizes and the
-    replicated narrow widths included."""
+    version bit for bit at every subsampling it takes (4:2:0, 4:2:2,
+    4:4:4, grey): Replica's, TUM's and EuRoC's sizes, widths not a
+    multiple of 4, an odd height, 1x1, and the replicated narrow chroma
+    (2 samples across at widths 3 and 4); also on chroma planes that are
+    views of a wider plane."""
     from monogs_tpu_torch.data.jpeg import ycc_to_rgb, ycc_to_rgb_plain
 
-    g = torch.Generator().manual_seed(0)
-    for h, w in [(680, 1200), (35, 51), (9, 3), (6, 2)]:
-        y = torch.randint(0, 256, (h, w), generator=g, dtype=torch.uint8)
-        for factors in [(2, 2), (1, 2), (1, 1), None]:
-            planes = [y]
-            if factors is not None:
-                sy, sx = factors
-                planes += [torch.randint(0, 256, (-(-h // sy), -(-w // sx)),
-                                         generator=g, dtype=torch.uint8)
-                           for _ in range(2)]
-            got = ycc_to_rgb(*(p.to(card) for p in planes))
-            assert torch.equal(got.cpu(), ycc_to_rgb_plain(*planes))
+    h, w = shape
+    g = torch.Generator().manual_seed(h * 10_000 + w)
+    y = torch.randint(0, 256, (h, w), generator=g, dtype=torch.uint8)
+    for factors in [(2, 2), (1, 2), (1, 1), None]:
+        wide = [y]
+        if factors is not None:
+            sy, sx = factors
+            wide += [torch.randint(0, 256, (-(-h // sy), -(-w // sx) + 1),
+                                   generator=g, dtype=torch.uint8)
+                     for _ in range(2)]
+        want = ycc_to_rgb_plain(y, *(p[:, 1:].contiguous()
+                                     for p in wide[1:]))
+        on_card = [p.to(card) for p in wide]
+        got = ycc_to_rgb(on_card[0], *(p[:, 1:] for p in on_card[1:]))
+        again = ycc_to_rgb(on_card[0], *(p[:, 1:].contiguous()
+                                         for p in on_card[1:]))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), (shape, factors)
+        assert torch.equal(again, got), (shape, factors)
 
 
 def test_png_unfilter_native_on_card_machine(card):

@@ -495,6 +495,43 @@ def test_raw_frame_undistorts_to_the_ideal_view():
     assert np.median(err[inner]) <= 1 and np.percentile(err[inner], 99) <= 4
 
 
+@pytest.mark.parametrize("channels", [1, 3])
+def test_remap_pair_cpu_path_and_checks(channels):
+    """``remap_pair`` on the CPU is two plain remaps: the bits of two
+    ``remap`` calls, with its maps as ``Maps`` or as (map_x, map_y), and
+    ``remap`` takes ``Maps`` alone; maps or images that do not match
+    raise."""
+    rng = np.random.default_rng(channels)
+    shape = (21, 30, 3) if channels == 3 else (21, 30)
+    img0, img1 = (torch.from_numpy(rng.integers(0, 256, shape, np.uint8))
+                  for _ in range(2))
+    ys, xs = np.mgrid[0:19, 0:27].astype(np.float32)
+    maps0, maps1 = (tuple(torch.from_numpy(m) for m in (
+        xs * 1.15 - 2.5 + 0.6 * rng.random(xs.shape, np.float32),
+        ys * 1.1 - 1.5 + 0.6 * rng.random(ys.shape, np.float32)))
+        for _ in range(2))
+    a0, a1 = undistort.remap_pair(img0, undistort.check_maps(*maps0), img1,
+                                  maps1)
+    assert torch.equal(a0, undistort.remap(img0, *maps0))
+    assert torch.equal(a1, undistort.remap_plain(img1, *maps1))
+    assert torch.equal(undistort.remap(img0, undistort.check_maps(*maps0)),
+                       a0)
+    assert a0.shape == (19, 27) + shape[2:]
+    short = tuple(m[:, :-1] for m in maps1)
+    with pytest.raises(ValueError, match="like map_x"):
+        undistort.check_maps(maps0[0], short[1])
+    with pytest.raises(ValueError, match="like map_x"):
+        undistort.check_maps(maps0[0].double(), maps0[1])
+    with pytest.raises(ValueError, match="one shape"):
+        undistort.remap_pair(img0, maps0, img1, short)
+    with pytest.raises(ValueError, match="one shape"):
+        undistort.remap_pair(img0, maps0, img1[:-1], maps1)
+    with pytest.raises(ValueError, match="uint8"):
+        undistort.remap_pair(img0, maps0, img1.float(), maps1)
+    with pytest.raises(TypeError, match="check_maps"):
+        undistort.remap(img0, maps0[0])
+
+
 # ---------------------------------------------------------------- SGBM
 
 def test_sgbm_plain_matches_cv2_on_textured_fixture(tmp_path):
