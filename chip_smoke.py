@@ -1654,8 +1654,8 @@ def mapping_path(torch, intr, cfg, scene, frames, poses):
         with profiling.trace(str(TRACE_DIR / f"mapping_{n}"),
                              device=dev) as tr:
             run_map(n, 100)
-        prof_[n] = tr.summary
-    a, b = prof_[1], prof_[3]
+        prof_[n] = tr
+    a, b = prof_[1].summary, prof_[3].summary
     busy = (b["device_busy_ms"] - a["device_busy_ms"]) / 2
     wall = (b["wall_ms"] - a["wall_ms"]) / 2
     out["profile_iteration"] = dict(
@@ -1666,7 +1666,10 @@ def mapping_path(torch, intr, cfg, scene, frames, poses):
         device_ms_by_class={k: (b["device_ms_by_class"][k]
                                 - a["device_ms_by_class"][k]) / 2
                             for k in a["device_ms_by_class"]},
-        top_3_iter_call=b["top"])
+        top_3_iter_call=b["top"],
+        # the program's spans in the 3-iteration call: device self ms
+        spans_3_iter_call={k: r["device_self_s"] * 1e3
+                           for k, r in prof_[3].spans.items()})
     return out, launches
 
 

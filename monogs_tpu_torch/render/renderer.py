@@ -41,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import se3
 from ..ops.scan import blocked_cumprod_excl
+from ..utils.profiling import span
 from .blend_lists import (  # noqa: F401  (the packed row layout)
     _ALPHA_MIN, _CA, _CB, _CC, _F, _LOGO, _OPA, _R0, _G0, _B0, _RAD, _T_EPS,
     _U, _V, _Z, blend_lists_counts, blend_lists_fn, blend_lists_jvp8,
@@ -772,6 +773,11 @@ def render_map_grad(gauss: GaussianArrays, T_cw, intr: Intrinsics,
     from the default only in the order of float32 additions, and give the
     same bits on every run.
 
+    While the profiler records, the view's work is three spans
+    (``utils/profiling.py``): ``ba.prep`` (preprocess, pack, the gather and
+    mask of the rows), ``ba.map_grad`` (the kernel) and ``ba.pullback``
+    (the pull-back to the leaves).
+
     Returns (loss, g_leaves, g_tau, g_off, g_ea, g_eb, radii) with g_leaves
     the gradients of (xyz, sh, log_scale, quat, opa_logit)."""
     _check_backend(cfg)
@@ -782,67 +788,79 @@ def render_map_grad(gauss: GaussianArrays, T_cw, intr: Intrinsics,
     if gather_first and sortperm is None:
         s_tiles, kf = lists.idx.shape
         ids = lists.idx.reshape(-1)
-        leaves = [x[ids].detach().requires_grad_(True) for x in full]
-        off_g = off[ids].detach().requires_grad_(True)
-        with torch.enable_grad():
-            prep = preprocess(leaves[0], leaves[2], leaves[3], leaves[4],
-                              leaves[1], gauss.active[ids],
-                              se3.retract(T_cw, tau), intr,
-                              sh_degree=cfg.sh_degree, near=cfg.near,
-                              means2d_offset=off_g)
-            d = _masked_rows(_pack(prep).reshape(s_tiles, kf, _F),
-                             lists.vld & prep.valid.reshape(s_tiles, kf))
-        loss, dd, g_ea, g_eb = map_grad_from_rows(
-            d.detach(), intr, cfg, gt_t, mask_t, ea, eb, initialization,
-            alpha, **kw)
-        gg = torch.autograd.grad(d, leaves + [tau, off_g], grad_outputs=dd)
-        n = off.shape[0]
-        perm = torch.argsort(ids, stable=True)
-        sids = ids[perm]
-        g_leaves = tuple(segment_sum(n, sids, g[perm]) for g in gg[:5])
-        g_off = segment_sum(n, sids, gg[6][perm])
-        with torch.no_grad():
+        with span("ba.prep"):
+            leaves = [x[ids].detach().requires_grad_(True) for x in full]
+            off_g = off[ids].detach().requires_grad_(True)
+            with torch.enable_grad():
+                prep = preprocess(leaves[0], leaves[2], leaves[3], leaves[4],
+                                  leaves[1], gauss.active[ids],
+                                  se3.retract(T_cw, tau), intr,
+                                  sh_degree=cfg.sh_degree, near=cfg.near,
+                                  means2d_offset=off_g)
+                d = _masked_rows(_pack(prep).reshape(s_tiles, kf, _F),
+                                 lists.vld & prep.valid.reshape(s_tiles, kf))
+        with span("ba.map_grad"):
+            loss, dd, g_ea, g_eb = map_grad_from_rows(
+                d.detach(), intr, cfg, gt_t, mask_t, ea, eb, initialization,
+                alpha, **kw)
+        with span("ba.pullback"):
+            gg = torch.autograd.grad(d, leaves + [tau, off_g],
+                                     grad_outputs=dd)
+            n = off.shape[0]
+            perm = torch.argsort(ids, stable=True)
+            sids = ids[perm]
+            g_leaves = tuple(segment_sum(n, sids, g[perm]) for g in gg[:5])
+            g_off = segment_sum(n, sids, gg[6][perm])
+        with span("ba.prep"), torch.no_grad():
             radii = preprocess(*(full[i] for i in (0, 2, 3, 4, 1)),
                                gauss.active, se3.retract(T_cw, tau), intr,
                                sh_degree=cfg.sh_degree,
                                near=cfg.near).radius
         return loss, g_leaves, gg[5], g_off, g_ea, g_eb, radii
 
-    leaves = [x.detach().requires_grad_(True) for x in full]
-    off = off.detach().requires_grad_(True)
-    with torch.enable_grad():
-        prep = preprocess(leaves[0], leaves[2], leaves[3], leaves[4],
-                          leaves[1], gauss.active, se3.retract(T_cw, tau),
-                          intr, sh_degree=cfg.sh_degree, near=cfg.near,
-                          means2d_offset=off)
-        packed = _pack(prep)
-    vld_f = lists.vld & prep.valid[lists.idx]
-    if sortperm is None:
+    with span("ba.prep"):
+        leaves = [x.detach().requires_grad_(True) for x in full]
+        off = off.detach().requires_grad_(True)
         with torch.enable_grad():
-            d = _masked_rows(packed[lists.idx], vld_f)
-        loss, dd, g_ea, g_eb = map_grad_from_rows(
-            d.detach(), intr, cfg, gt_t, mask_t, ea, eb, initialization,
-            alpha, **kw)
-        grads = torch.autograd.grad(d, leaves + [tau, off],
-                                    grad_outputs=dd)
+            prep = preprocess(leaves[0], leaves[2], leaves[3], leaves[4],
+                              leaves[1], gauss.active,
+                              se3.retract(T_cw, tau), intr,
+                              sh_degree=cfg.sh_degree, near=cfg.near,
+                              means2d_offset=off)
+            packed = _pack(prep)
+        vld_f = lists.vld & prep.valid[lists.idx]
+        if sortperm is None:
+            with torch.enable_grad():
+                d = _masked_rows(packed[lists.idx], vld_f)
+        else:
+            assert txy is None and px_frac == 1.0, (
+                "sortperm is a permutation of the full lists")
+            d = _masked_rows(packed.detach()[lists.idx], vld_f)
+    if sortperm is None:
+        with span("ba.map_grad"):
+            loss, dd, g_ea, g_eb = map_grad_from_rows(
+                d.detach(), intr, cfg, gt_t, mask_t, ea, eb, initialization,
+                alpha, **kw)
+        with span("ba.pullback"):
+            grads = torch.autograd.grad(d, leaves + [tau, off],
+                                        grad_outputs=dd)
     else:
+        with span("ba.map_grad"):
+            loss, dd, g_ea, g_eb = map_grad_from_rows(
+                d, intr, cfg, gt_t, mask_t, ea, eb, initialization, alpha,
+                gtd_t=gtd_t)
         # the gather and the mask transposed by hand: the log-opacity
         # cotangent is gated by the mask (the -1e30 branch is constant),
         # then the rows go back in the frozen order of their ids
-        assert txy is None and px_frac == 1.0, (
-            "sortperm is a permutation of the full lists")
-        perm, sids = sortperm
-        d = _masked_rows(packed.detach()[lists.idx], vld_f)
-        loss, dd, g_ea, g_eb = map_grad_from_rows(
-            d, intr, cfg, gt_t, mask_t, ea, eb, initialization, alpha,
-            gtd_t=gtd_t)
-        logo = torch.where(vld_f, dd[..., _LOGO],
-                           torch.zeros_like(dd[..., _LOGO]))
-        dd = torch.cat([dd[..., :_LOGO], logo[..., None],
-                        dd[..., _LOGO + 1:]], dim=-1).reshape(-1, _F)
-        dpacked = segment_sum(packed.shape[0], sids, dd[perm])
-        grads = torch.autograd.grad(packed, leaves + [tau, off],
-                                    grad_outputs=dpacked)
+        with span("ba.pullback"):
+            perm, sids = sortperm
+            logo = torch.where(vld_f, dd[..., _LOGO],
+                               torch.zeros_like(dd[..., _LOGO]))
+            dd = torch.cat([dd[..., :_LOGO], logo[..., None],
+                            dd[..., _LOGO + 1:]], dim=-1).reshape(-1, _F)
+            dpacked = segment_sum(packed.shape[0], sids, dd[perm])
+            grads = torch.autograd.grad(packed, leaves + [tau, off],
+                                        grad_outputs=dpacked)
     return (loss, tuple(grads[:5]), grads[5], grads[6], g_ea, g_eb,
             prep.radius.detach())
 

@@ -135,7 +135,7 @@ class BackEnd:
             Log(f"Mapping sharded over a {self.shape[0]} x {self.shape[1]} "
                 f"(view x gauss) mesh of {ranks.backend} ranks")
 
-        # wall-clock per stage: the full-system time split
+        # time per stage: the full-system time split
         self.timers = StageTimers(period=1 << 30, tag="ProfBE")
 
         self.iteration_count = 0
@@ -356,10 +356,10 @@ class BackEnd:
         Log("Map refinement done")
 
     def stage_summary(self) -> dict:
-        """{stage: (total_seconds, count)} of the backend's wall-clock
-        (insert, map_init, map_kf, map_idle, map_prune)."""
-        return {k: (self.timers.totals[k], self.timers.total_counts[k])
-                for k in sorted(self.timers.totals)}
+        """{stage: (total_seconds, count)} of the backend's stages (insert,
+        map_init, map_kf, map_idle, map_prune, refinement): on the card's
+        timeline, read here (``StageTimers.summary``)."""
+        return self.timers.summary()
 
     def push_to_frontend(self, tag=None):
         self.last_sent = 0

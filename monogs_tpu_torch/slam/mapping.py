@@ -78,6 +78,7 @@ from ..render.renderer import (
     _tile_origins, build_tile_lists, map_grad_from_rows, render,
     render_batch, render_map_grad, scatter_sum, tile_images,
 )
+from ..utils.profiling import count, span
 
 
 class MapConfig(NamedTuple):
@@ -360,6 +361,14 @@ def _build_lists(m: gm.GaussianMap, Ts, intr, cfg, margin):
     return [build_tile_lists(gauss, T, intr, cfg, margin=margin) for T in Ts]
 
 
+def _rebin(m: gm.GaussianMap, Ts, intr, cfg, margin, use_segsum: bool):
+    """The views' lists and, under ``scatter_segsum``, their argsorts."""
+    with span("ba.rebin"):
+        lists = _build_lists(m, Ts, intr, cfg, margin)
+        return lists, (_sort_lists(lists) if use_segsum
+                       else [None] * len(lists))
+
+
 def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
               generator: Optional[torch.Generator], intr: Intrinsics,
               cfg: RenderConfig, mcfg: MapConfig, hyper: gm.MapHyper,
@@ -376,7 +385,21 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
     (``bin_margin > 0``).
     ``kf_adam`` carries the window Adam state across calls. All tensors lie
     on one device; ``generator`` is a ``torch.Generator`` on it. ``group``:
-    the view-sharded body (module docstring), ``cams`` the rank's views."""
+    the view-sharded body (module docstring), ``cams`` the rank's views.
+
+    While the profiler records, the call is span ``ba.call``, each
+    iteration ``ba.iter`` (and one ``ba.iters`` count), with ``ba.rebin``
+    (list builds), ``ba.prep`` (the views' render and gradient code outside
+    ``render_map_grad``'s own spans), ``ba.map_adam``, ``ba.densify``
+    (densify and prune, opacity resets) and ``ba.visibility`` inside
+    (``utils/profiling.py``)."""
+    with span("ba.call"):
+        return _map_iters(m, cams, n_iters, it_count, generator, intr, cfg,
+                          mcfg, hyper, kf_adam, initialization, group, draws)
+
+
+def _map_iters(m, cams, n_iters, it_count, generator, intr, cfg, mcfg, hyper,
+               kf_adam, initialization, group, draws) -> MapResult:
     _check_supported(cfg, mcfg, group)
     if group is not None:
         from ..parallel import comm
@@ -415,158 +438,171 @@ def map_iters(m: gm.GaussianMap, cams: CamBatch, n_iters: int, it_count: int,
     n_sub = max(8, int(n_fine * mcfg.tile_frac) // 8 * 8)
     px_frac = n_sub / n_fine if use_sub else 1.0
 
-    lists = (_build_lists(m, cams.T, intr, cfg_iter, mcfg.bin_margin)
-             if use_lists else [None] * b)
-    sortperm = _sort_lists(lists) if use_segsum else [None] * b
+    lists, sortperm = [None] * b, [None] * b
+    if use_lists:
+        lists, sortperm = _rebin(m, cams.T, intr, cfg_iter, mcfg.bin_margin,
+                                 use_segsum)
     kam, kav, kat = kf_adam if kf_adam is not None else new_kf_adam(b, dev)
     T, ea, eb = cams.T, cams.ea, cams.eb
     tau0 = torch.zeros(6, dtype=torch.float32, device=dev)
     off0 = torch.zeros((n, 2), dtype=torch.float32, device=dev)
     itc, since = int(it_count), 0
     for i in range(n_iters):
-        itc += 1
-        gauss = m.render_view()
-        tsel_b = None
-        if use_sub:
-            tsel_b = _draw(draws.tsel, i)
-            if tsel_b is None:
-                tsel_b = torch.stack([
-                    torch.randperm(n_fine, generator=generator,
-                                   device=dev)[:n_sub] for _ in range(b)])
-            tsel_b = tsel_b.to(dev)
+        count("ba.iters")
+        with span("ba.iter", i):
+            itc += 1
+            gauss = m.render_view()
+            tsel_b = None
+            if use_sub:
+                tsel_b = _draw(draws.tsel, i)
+                if tsel_b is None:
+                    tsel_b = torch.stack([
+                        torch.randperm(n_fine, generator=generator,
+                                       device=dev)[:n_sub] for _ in range(b)])
+                tsel_b = tsel_b.to(dev)
 
-        g_leaves = None
-        g_tau, g_ea, g_eb = [], [], []
-        accum = torch.zeros(n, dtype=torch.float32, device=dev)
-        denom = torch.zeros_like(accum)
-        radii_d = torch.zeros_like(accum)
-        visible_any = torch.zeros(n, dtype=torch.bool, device=dev)
-        if io_batch:
-            g_leaves, per_view = _io_batch_grads(
-                gauss, cams, T, ea, eb, intr, cfg_iter, mcfg,
-                initialization, lists, gt_tb, mask_tb, gtd_tb)
-        elif batch:
-            g_leaves, per_view = _batch_render_grads(
-                gauss, cams, T, ea, eb, intr, cfg_iter, mcfg,
-                initialization, lists)
-        else:
-            per_view = []
-            for v in range(b):
-                if not fused:
-                    _, gl, gt_v, go_v, gea_v, geb_v, radii_v = (
-                        _view_loss_grads(gauss, cams, v, T[v], ea[v], eb[v],
-                                         intr, cfg_iter, mcfg,
-                                         initialization, lists[v]))
-                else:
-                    li, lv = lists[v].idx, lists[v].vld
-                    gt_t, mask_t = gt_tb[v], mask_tb[v]
-                    gtd_t = None if gtd_tb is None else gtd_tb[v]
-                    txy = None
-                    if use_sub:
-                        ts = tsel_b[v]
-                        li, lv = li[ts], lv[ts]
-                        gt_t, mask_t = gt_t[ts], mask_t[ts]
-                        if gtd_t is not None:
-                            gtd_t = gtd_t[ts]
-                        txy = (tx0f[ts], ty0f[ts])
-                    _, gl, gt_v, go_v, gea_v, geb_v, radii_v = (
-                        render_map_grad(
-                            gauss, T[v], intr, cfg_iter,
-                            TileLists(idx=li, vld=lv), gt_t, mask_t, tau0,
-                            off0, ea[v], eb[v], initialization, mcfg.alpha,
-                            gtd_t=gtd_t, sortperm=sortperm[v], txy=txy,
-                            px_frac=px_frac,
-                            gather_first=mcfg.gather_first))
-                gl = [g * valid_f[v] for g in gl]
-                g_leaves = gl if g_leaves is None else [
-                    a + c for a, c in zip(g_leaves, gl)]
-                per_view.append((gt_v, go_v, gea_v, geb_v, radii_v))
-        for v, (gt_v, go_v, gea_v, geb_v, radii_v) in enumerate(per_view):
-            s = valid_f[v]
-            g_tau.append(gt_v * s)
-            g_ea.append(gea_v * s)
-            g_eb.append(geb_v * s)
-            # densification statistics (per-view screen-space gradient
-            # norms of the visible Gaussians, summed over views)
-            vis = (radii_v > 0) & cams.valid[v]
-            norms = torch.linalg.norm(go_v * s, dim=-1)
-            accum = accum + torch.where(vis, norms, torch.zeros_like(norms))
-            denom = denom + vis.to(torch.float32)
-            radii_d = torch.maximum(
-                radii_d, torch.where(vis, radii_v, torch.zeros_like(radii_v)))
-            visible_any = visible_any | vis
+            g_leaves = None
+            g_tau, g_ea, g_eb = [], [], []
+            accum = torch.zeros(n, dtype=torch.float32, device=dev)
+            denom = torch.zeros_like(accum)
+            radii_d = torch.zeros_like(accum)
+            visible_any = torch.zeros(n, dtype=torch.bool, device=dev)
+            if io_batch:
+                with span("ba.prep"):
+                    g_leaves, per_view = _io_batch_grads(
+                        gauss, cams, T, ea, eb, intr, cfg_iter, mcfg,
+                        initialization, lists, gt_tb, mask_tb, gtd_tb)
+            elif batch:
+                with span("ba.prep"):
+                    g_leaves, per_view = _batch_render_grads(
+                        gauss, cams, T, ea, eb, intr, cfg_iter, mcfg,
+                        initialization, lists)
+            else:
+                per_view = []
+                for v in range(b):
+                    if not fused:
+                        with span("ba.prep"):
+                            _, gl, gt_v, go_v, gea_v, geb_v, radii_v = (
+                                _view_loss_grads(
+                                    gauss, cams, v, T[v], ea[v], eb[v],
+                                    intr, cfg_iter, mcfg, initialization,
+                                    lists[v]))
+                    else:
+                        li, lv = lists[v].idx, lists[v].vld
+                        gt_t, mask_t = gt_tb[v], mask_tb[v]
+                        gtd_t = None if gtd_tb is None else gtd_tb[v]
+                        txy = None
+                        if use_sub:
+                            ts = tsel_b[v]
+                            li, lv = li[ts], lv[ts]
+                            gt_t, mask_t = gt_t[ts], mask_t[ts]
+                            if gtd_t is not None:
+                                gtd_t = gtd_t[ts]
+                            txy = (tx0f[ts], ty0f[ts])
+                        _, gl, gt_v, go_v, gea_v, geb_v, radii_v = (
+                            render_map_grad(
+                                gauss, T[v], intr, cfg_iter,
+                                TileLists(idx=li, vld=lv), gt_t, mask_t, tau0,
+                                off0, ea[v], eb[v], initialization, mcfg.alpha,
+                                gtd_t=gtd_t, sortperm=sortperm[v], txy=txy,
+                                px_frac=px_frac,
+                                gather_first=mcfg.gather_first))
+                    gl = [g * valid_f[v] for g in gl]
+                    g_leaves = gl if g_leaves is None else [
+                        a + c for a, c in zip(g_leaves, gl)]
+                    per_view.append((gt_v, go_v, gea_v, geb_v, radii_v))
+            for v, (gt_v, go_v, gea_v, geb_v, radii_v) in enumerate(per_view):
+                s = valid_f[v]
+                g_tau.append(gt_v * s)
+                g_ea.append(gea_v * s)
+                g_eb.append(geb_v * s)
+                # densification statistics (per-view screen-space gradient
+                # norms of the visible Gaussians, summed over views)
+                vis = (radii_v > 0) & cams.valid[v]
+                norms = torch.linalg.norm(go_v * s, dim=-1)
+                accum = accum + torch.where(vis, norms,
+                                            torch.zeros_like(norms))
+                denom = denom + vis.to(torch.float32)
+                radii_d = torch.maximum(radii_d, torch.where(
+                    vis, radii_v, torch.zeros_like(radii_v)))
+                visible_any = visible_any | vis
 
-        ls = m.params.log_scale.detach().requires_grad_(True)
-        with torch.enable_grad():
-            reg = mcfg.isotropic_weight * losses.isotropic_reg(
-                torch.exp(ls), m.active)
-        (g_iso,) = torch.autograd.grad(reg, ls)
-        g_leaves[2] = g_leaves[2] + g_iso
-        if group is not None:
-            # the JAX body's psum of the gradients and of the statistics,
-            # in one collective; then the pmax
-            *g_leaves, accum, denom = comm.all_reduce_flat_(
-                [*g_leaves, accum, denom], group)
-            comm.all_reduce_(radii_d, group, "max")
-        m = m._replace(grad_accum=m.grad_accum + accum,
-                       denom=m.denom + denom,
-                       max_radii2d=torch.maximum(m.max_radii2d, radii_d))
-        m = gm.adam_step(m, gm.ParamLeaves(*g_leaves), hyper, step=itc - 1)
+            ls = m.params.log_scale.detach().requires_grad_(True)
+            with torch.enable_grad():
+                reg = mcfg.isotropic_weight * losses.isotropic_reg(
+                    torch.exp(ls), m.active)
+            (g_iso,) = torch.autograd.grad(reg, ls)
+            g_leaves[2] = g_leaves[2] + g_iso
+            if group is not None:
+                # the JAX body's psum of the gradients and of the statistics,
+                # in one collective; then the pmax
+                *g_leaves, accum, denom = comm.all_reduce_flat_(
+                    [*g_leaves, accum, denom], group)
+                comm.all_reduce_(radii_d, group, "max")
+            m = m._replace(grad_accum=m.grad_accum + accum,
+                           denom=m.denom + denom,
+                           max_radii2d=torch.maximum(m.max_radii2d, radii_d))
+            with span("ba.map_adam"):
+                m = gm.adam_step(m, gm.ParamLeaves(*g_leaves), hyper,
+                                 step=itc - 1)
 
-        if initialization:
-            do_dens = itc % mcfg.init_gaussian_update == 0
-            do_reset = itc in (mcfg.init_gaussian_reset,
-                               mcfg.densify_from_iter)
-            dens = (mcfg.init_gaussian_th, mcfg.init_gaussian_extent, None)
-        else:
-            do_dens = (itc % mcfg.gaussian_update_every
-                       == mcfg.gaussian_update_offset)
-            do_reset = itc % mcfg.gaussian_reset == 0 and not do_dens
-            dens = (mcfg.gaussian_th, mcfg.gaussian_extent,
-                    mcfg.size_threshold)
-        if do_dens:
-            noise = _draw(draws.split_noise, i)
-            m = gm.densify_and_prune(
-                m, generator, mcfg.densify_grad_threshold, *dens, hyper,
-                clone_cap=mcfg.clone_cap, split_cap=mcfg.split_cap,
-                samples=None if noise is None else noise.to(dev))
-        if do_reset:
-            if not initialization and group is not None:
-                visible_any = comm.all_reduce_(visible_any.to(torch.int32),
-                                               group) > 0
-            m = (gm.reset_opacity(m) if initialization
-                 else gm.reset_opacity_nonvisible(m, visible_any))
+            if initialization:
+                do_dens = itc % mcfg.init_gaussian_update == 0
+                do_reset = itc in (mcfg.init_gaussian_reset,
+                                   mcfg.densify_from_iter)
+                dens = (mcfg.init_gaussian_th, mcfg.init_gaussian_extent, None)
+            else:
+                do_dens = (itc % mcfg.gaussian_update_every
+                           == mcfg.gaussian_update_offset)
+                do_reset = itc % mcfg.gaussian_reset == 0 and not do_dens
+                dens = (mcfg.gaussian_th, mcfg.gaussian_extent,
+                        mcfg.size_threshold)
+            if do_dens:
+                noise = _draw(draws.split_noise, i)
+                with span("ba.densify"):
+                    m = gm.densify_and_prune(
+                        m, generator, mcfg.densify_grad_threshold, *dens,
+                        hyper, clone_cap=mcfg.clone_cap,
+                        split_cap=mcfg.split_cap,
+                        samples=None if noise is None else noise.to(dev))
+            if do_reset:
+                with span("ba.densify"):
+                    if not initialization and group is not None:
+                        visible_any = comm.all_reduce_(
+                            visible_any.to(torch.int32), group) > 0
+                    m = (gm.reset_opacity(m) if initialization
+                         else gm.reset_opacity_nonvisible(m, visible_any))
 
-        if not initialization:
-            g8 = torch.cat([torch.stack(g_tau), torch.stack(g_ea)[:, None],
-                            torch.stack(g_eb)[:, None]], dim=-1)
-            g8 = torch.where(opt_mask, g8, torch.zeros_like(g8))
-            kat += 1
-            kam = 0.9 * kam + 0.1 * g8
-            kav = 0.999 * kav + 0.001 * g8 * g8
-            d8 = -lr8 * (kam / (1 - 0.9 ** kat)) / (
-                torch.sqrt(kav / (1 - 0.999 ** kat)) + 1e-8)
-            d8 = torch.where(opt_mask, d8, torch.zeros_like(d8))
-            T = se3.retract(T, d8[:, :6])
-            ea = ea + d8[:, 6]
-            eb = eb + d8[:, 7]
+            if not initialization:
+                g8 = torch.cat([torch.stack(g_tau), torch.stack(g_ea)[:, None],
+                                torch.stack(g_eb)[:, None]], dim=-1)
+                g8 = torch.where(opt_mask, g8, torch.zeros_like(g8))
+                kat += 1
+                kam = 0.9 * kam + 0.1 * g8
+                kav = 0.999 * kav + 0.001 * g8 * g8
+                d8 = -lr8 * (kam / (1 - 0.9 ** kat)) / (
+                    torch.sqrt(kav / (1 - 0.999 ** kat)) + 1e-8)
+                d8 = torch.where(opt_mask, d8, torch.zeros_like(d8))
+                T = se3.retract(T, d8[:, :6])
+                ea = ea + d8[:, 6]
+                eb = eb + d8[:, 7]
 
-        # rebuild when stale or when the Gaussian set changed (new slots
-        # are in no list)
-        since += 1
-        if use_lists and (since >= mcfg.rebin_every or do_dens):
-            lists = _build_lists(m, T, intr, cfg_iter, mcfg.bin_margin)
-            if use_segsum:
-                sortperm = _sort_lists(lists)
-            since = 0
+            # rebuild when stale or when the Gaussian set changed (new slots
+            # are in no list)
+            since += 1
+            if use_lists and (since >= mcfg.rebin_every or do_dens):
+                lists, sortperm = _rebin(m, T, intr, cfg_iter,
+                                         mcfg.bin_margin, use_segsum)
+                since = 0
 
     # the final visibility pass, from the lists or binning anew
-    gauss = m.render_view()
-    if not (use_lists and mcfg.vis_from_lists):
-        lists = [None] * b
-    visibility = torch.stack([
-        (render(gauss, T[v], intr, cfg, lists=lists[v]).n_touched > 0)
-        & cams.valid[v] for v in range(b)])
+    with span("ba.visibility"):
+        gauss = m.render_view()
+        if not (use_lists and mcfg.vis_from_lists):
+            lists = [None] * b
+        visibility = torch.stack([
+            (render(gauss, T[v], intr, cfg, lists=lists[v]).n_touched > 0)
+            & cams.valid[v] for v in range(b)])
     return MapResult(m=m, cams=cams._replace(T=T, ea=ea, eb=eb),
                      it_count=itc, visibility=visibility,
                      kf_adam=(kam, kav, kat))

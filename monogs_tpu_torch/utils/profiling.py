@@ -1,12 +1,15 @@
-"""Profiling: stage timers and per-frame profile logs.
+"""Profiling: spans, stage timers and per-frame profile logs.
 
 Counterpart of ``monogs_tpu/utils/profiling.py``:
-  1. wall-clock stage timers, averages logged every ``period`` frames
-     (``StageTimers``);
-  2. per-frame profile records saved as run-frame%06d.npz, the same layout
+  1. spans and counters inside the program (``span``, ``count``, read by
+     ``span_table`` and ``counters``), recorded only while ``torch.profiler``
+     records: a span off costs one attribute read;
+  2. stage timers, averages logged every ``period`` frames
+     (``StageTimers``), always on, on the card's timeline;
+  3. per-frame profile records saved as run-frame%06d.npz, the same layout
      as the JAX package's, so that either package's logs load in the other
      (``ProfileLogger``, ``load_profile_logs``);
-  3. device traces: ``trace`` runs ``torch.profiler`` over a block (CUDA
+  4. device traces: ``trace`` runs ``torch.profiler`` over a block (CUDA
      activity on the card) and writes a Chrome trace that TensorBoard's
      profiler plugin and Perfetto open, and ``trace_summary`` reads a
      profile: device time and launches by kernel and by class, the busiest
@@ -19,18 +22,188 @@ import contextlib
 import glob
 import os
 import socket
+import threading
 import time
 from collections import defaultdict
 
 import numpy as np
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from .logging import Log
 
 
+class _Store:
+    """The spans and counters recorded while the profiler records: the
+    finished and open spans in the order they began, each thread's stack of
+    open spans, and the counters."""
+
+    def __init__(self):
+        self.spans: list = []
+        self.counts: dict = defaultdict(int)
+        self.lock = threading.Lock()
+        self.local = threading.local()
+
+    def stack(self) -> list:
+        st = getattr(self.local, "stack", None)
+        if st is None:
+            st = self.local.stack = []
+        return st
+
+
+_STORE = _Store()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """One timed interval: the host's ``perf_counter_ns`` at enter and exit
+    and, in a process that has initialised CUDA, a pair of timing events on
+    the current stream, read only when ``device_s`` asks (no synchronise
+    when the span ends). With ``store`` the span is also recorded: pushed on
+    the thread's stack (``parent`` the span open around it, ``call`` the
+    outermost one, which identifies e.g. a ``map_iters`` call, and ``it``
+    the iteration it belongs to, given or its parent's) and entered as a
+    profiler operation, so that it lands in the trace on the device events'
+    clock. The operation is a function-scope record: a ``record_function``
+    is a user annotation, which the profiler mirrors onto the device's
+    timeline as an event of its own that readers of the device events would
+    count as device work."""
+
+    __slots__ = ("name", "parent", "call", "it", "t0", "t1", "ev", "_rf",
+                 "_store")
+
+    def __init__(self, name: str, store: _Store = None, it=None):
+        self.name, self._store, self.it = name, store, it
+        self.parent = self.ev = self._rf = self.t1 = None
+        self.call = self
+
+    def __enter__(self):
+        store = self._store
+        if store is not None:
+            stack = store.stack()
+            if stack:
+                self.parent = stack[-1]
+                self.call = self.parent.call
+                if self.it is None:
+                    self.it = self.parent.it
+            stack.append(self)
+            store.spans.append(self)
+            self._rf = torch._C._profiler._RecordFunctionFast(self.name)
+            self._rf.__enter__()
+        if torch.cuda.is_initialized():
+            self.ev = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+            self.ev[0].record()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter_ns()
+        if self.ev is not None:
+            self.ev[1].record()
+        if self._store is not None:
+            self._rf.__exit__(None, None, None)
+            self._store.stack().pop()
+        return False
+
+    def host_s(self) -> float:
+        return (self.t1 - self.t0) * 1e-9
+
+    def done(self) -> bool:
+        """Whether the card has reached the span's end (always on the
+        host)."""
+        return self.ev is None or self.ev[1].query()
+
+    def device_s(self) -> float:
+        """Seconds between the two events on the card's timeline, waiting
+        for the card to reach the second; the host's time where no event
+        was recorded (the device is the host)."""
+        if self.ev is None:
+            return self.host_s()
+        self.ev[1].synchronize()
+        return self.ev[0].elapsed_time(self.ev[1]) * 1e-3
+
+
+def span(name: str, it=None):
+    """A context manager that records the block as span ``name`` (of
+    iteration ``it``, else of the span around it) while the profiler
+    records (``torch.profiler``, ``trace``), and otherwise does nothing:
+    off, it costs one attribute read (the profiler's own flag) and returns
+    a shared null context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, _STORE, it)
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to counter ``name`` while the profiler records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with _STORE.lock:
+        _STORE.counts[name] += n
+
+
+def counters() -> dict:
+    """{name: count} of ``count`` since ``reset_spans``."""
+    with _STORE.lock:
+        return dict(_STORE.counts)
+
+
+def reset_spans():
+    """Forget every recorded span and counter."""
+    with _STORE.lock:
+        _STORE.spans = []
+        _STORE.counts.clear()
+
+
+def span_table() -> dict:
+    """Per span name, over the finished spans since ``reset_spans``:
+    ``count``, ``calls`` and ``iters`` (the outermost spans and the
+    iterations of them that the spans belong to), ``host_s`` and
+    ``device_s`` (the spans' durations summed, on the host's clock and on
+    the card's timeline), and ``host_self_s`` and ``device_self_s``: the
+    same less the part that the spans' children cover. The card's times
+    wait for it to reach the spans' ends."""
+    spans = [s for s in _STORE.spans if s.t1 is not None]
+    dur = {id(s): (s.host_s(), s.device_s()) for s in spans}
+    inner = defaultdict(lambda: [0.0, 0.0])
+    for s in spans:
+        if s.parent is not None:
+            h, d = dur[id(s)]
+            acc = inner[id(s.parent)]
+            acc[0] += h
+            acc[1] += d
+    out, seen = {}, defaultdict(lambda: (set(), set()))
+    for s in spans:
+        h, d = dur[id(s)]
+        ch, cd = inner.get(id(s), (0.0, 0.0))
+        row = out.setdefault(s.name, dict(count=0, calls=0, iters=0,
+                                          host_s=0.0, host_self_s=0.0,
+                                          device_s=0.0, device_self_s=0.0))
+        calls, iters = seen[s.name]
+        calls.add(id(s.call))
+        if s.it is not None:
+            iters.add((id(s.call), s.it))
+        row["calls"], row["iters"] = len(calls), len(iters)
+        row["count"] += 1
+        row["host_s"] += h
+        row["host_self_s"] += h - ch
+        row["device_s"] += d
+        row["device_self_s"] += d - cd
+    return out
+
+
 class StageTimers:
-    """Accumulate wall-clock per stage; log averages every `period` frames.
+    """Accumulate time per stage; log averages every `period` frames.
     ``sums``/``counts`` restart after each log; ``totals``/``total_counts``
-    cover the whole run."""
+    cover the whole run.
+
+    A ``stage`` is a span (recorded in a trace while the profiler records).
+    In a process that has initialised CUDA its time is the card's timeline
+    between events recorded at its enter and exit, added when the card has
+    reached them: ``frame_done`` adds those it has reached, ``summary``
+    waits for the rest, so a stage adds no synchronise. On the CPU it is
+    the host's clock, added at once."""
 
     def __init__(self, period: int = 10, tag: str = "Prof"):
         self.period = period
@@ -40,14 +213,36 @@ class StageTimers:
         self.totals = defaultdict(float)
         self.total_counts = defaultdict(int)
         self.frames = 0
+        self._pending: list = []
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.time()
+        s = _Span(name, _STORE if _autograd_profiler._is_profiler_enabled
+                  else None)
         try:
-            yield
+            with s:
+                yield
         finally:
-            self.add(name, time.time() - t0)
+            if s.ev is None:
+                self.add(name, s.host_s())
+            else:
+                self._pending.append(s)
+
+    def _resolve(self, wait: bool):
+        keep = []
+        for s in self._pending:
+            if wait or s.done():
+                self.add(s.name, s.device_s())
+            else:
+                keep.append(s)
+        self._pending = keep
+
+    def summary(self) -> dict:
+        """{stage: (total_seconds, count)} over the run, every stage's
+        events waited for."""
+        self._resolve(wait=True)
+        return {k: (self.totals[k], self.total_counts[k])
+                for k in sorted(self.totals)}
 
     def add(self, name: str, seconds: float):
         self.sums[name] += seconds
@@ -56,6 +251,7 @@ class StageTimers:
         self.total_counts[name] += 1
 
     def frame_done(self):
+        self._resolve(wait=False)
         self.frames += 1
         if self.frames % self.period == 0:
             for name in sorted(self.sums):
@@ -188,11 +384,13 @@ def trace_summary(prof, wall_ms, top=8):
 class Trace:
     """What ``trace`` recorded, filled in when its block ends: ``path`` of
     the trace file, ``wall_ms`` of the block (up to a synchronisation of
-    the card), ``summary`` (``trace_summary``) and the profile itself."""
+    the card), ``summary`` (``trace_summary``), ``spans`` (``span_table``
+    of the block's spans) and the profile itself."""
 
     path = None
     wall_ms = None
     summary = None
+    spans = None
     prof = None
 
 
@@ -205,7 +403,6 @@ def trace(logdir: str, device="cuda"):
     before the window closes; a trace with no device event raises, so a
     trace on the card never records the CPU alone. With ``device="cpu"`` it
     records the CPU. Yields a ``Trace``, filled in on exit."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     from .. import resolve_device
@@ -218,6 +415,7 @@ def trace(logdir: str, device="cuda"):
         torch.cuda.synchronize(dev)
     os.makedirs(logdir, exist_ok=True)
     res = Trace()
+    reset_spans()
     prof = profile(activities=activities)
     prof.start()
     t0 = time.perf_counter()
@@ -234,6 +432,7 @@ def trace(logdir: str, device="cuda"):
         f"{time.time_ns()}.pt.trace.json")
     prof.export_chrome_trace(res.path)
     res.summary = trace_summary(prof, res.wall_ms)
+    res.spans = span_table()
     if cuda and not res.summary["kernel_launches"]:
         raise RuntimeError(
             f"the trace of {res.wall_ms:.1f} ms on {dev} holds no device "

@@ -1,5 +1,6 @@
-"""The port's observability modules on the CPU: ``utils/profiling.trace``
-and its summary, ``track_frame``'s truncated stages (a mirror of
+"""The port's observability modules on the CPU: ``utils/profiling``'s spans
+and counters (off, under the CPU profiler, inside ``map_iters``),
+``utils/profiling.trace`` and its summary, ``track_frame``'s truncated stages (a mirror of
 ``tests/test_tracking.py::test_stage_truncation_consistent_with_full`` on
 the port), ``utils/roofline.py`` (its bounds against chip_smoke.py's
 formulas from before they moved there, ``program_cost``, ``classify``) and
@@ -13,6 +14,7 @@ with the full frame (one torch thread, the same generator seed)."""
 import json
 import os
 import stat
+import time
 import zlib
 
 import numpy as np
@@ -21,15 +23,228 @@ import torch
 
 from monogs_tpu_torch import _build
 from monogs_tpu_torch.data.synthetic import SyntheticDataset
+from monogs_tpu_torch.models import gaussian_map as gm
 from monogs_tpu_torch.ops import se3
 from monogs_tpu_torch.render import Intrinsics, RenderConfig
 from monogs_tpu_torch.render import blend_lists as bl
+from monogs_tpu_torch.slam import mapping
 from monogs_tpu_torch.slam.frame import make_frame_data
 from monogs_tpu_torch.slam.tracking import STAGES, TrackConfig, track_frame
 from monogs_tpu_torch.utils import compile_stats, profiling, roofline
 from tests.torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = "cpu"
+
+
+# ------------------------------------------------------------------ spans
+
+def _cpu_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_span_off_records_nothing():
+    profiling.reset_spans()
+    a, b = profiling.span("a"), profiling.span("b", it=3)
+    assert a is b                  # one shared null context
+    with a, profiling.span("c"):
+        profiling.count("n", 5)
+    assert profiling.span_table() == {} and profiling.counters() == {}
+
+
+def test_spans_nest_under_the_cpu_profiler():
+    """Parents, calls and iterations, self times (a span's duration less its
+    children's), counters, and the spans among the profiler's operations;
+    on the CPU the device time is the host's."""
+    profiling.reset_spans()
+    with _cpu_profiler() as prof:
+        for call in range(2):
+            with profiling.span("outer"):
+                for i in range(3):
+                    profiling.count("n")
+                    with profiling.span("inner", it=i):
+                        with profiling.span("leaf"):
+                            time.sleep(0.002)
+                        time.sleep(0.001)
+    spans = list(profiling._STORE.spans)
+    tab, cnt = profiling.span_table(), profiling.counters()
+    assert cnt == {"n": 6}
+    assert {k: (r["count"], r["calls"], r["iters"]) for k, r in tab.items()} \
+        == {"outer": (2, 2, 0), "inner": (6, 2, 6), "leaf": (6, 2, 6)}
+    for s in spans:
+        if s.name == "leaf":
+            assert s.parent.name == "inner" and s.it == s.parent.it
+            assert s.call is s.parent.parent
+        if s.name == "outer":
+            assert s.parent is None and s.call is s
+    for k, r in tab.items():
+        assert r["device_s"] == r["host_s"]
+        assert r["device_self_s"] == r["host_self_s"]
+    assert tab["leaf"]["host_self_s"] == tab["leaf"]["host_s"] >= 0.012
+    assert tab["inner"]["host_self_s"] == pytest.approx(
+        tab["inner"]["host_s"] - tab["leaf"]["host_s"], abs=1e-12)
+    assert tab["inner"]["host_self_s"] >= 0.006
+    assert tab["outer"]["host_self_s"] == pytest.approx(
+        tab["outer"]["host_s"] - tab["inner"]["host_s"], abs=1e-12)
+    # the spans are operations of the profile, nested as entered
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert (names.count("outer"), names.count("inner"),
+            names.count("leaf")) == (2, 6, 6)
+    profiling.reset_spans()
+    assert profiling.span_table() == {} and profiling.counters() == {}
+
+
+def test_spans_and_counts_from_many_threads():
+    """Each thread nests its spans on its own stack, and no count is lost
+    (more threads than cores, a short switch interval)."""
+    import sys
+    import threading
+
+    n_threads, n_rounds = 2 * (os.cpu_count() or 1) + 2, 200
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    profiling.reset_spans()
+
+    def work(k):
+        for _ in range(n_rounds):
+            with profiling.span("outer", it=k):
+                profiling.count("n")
+                with profiling.span("inner"):
+                    profiling.count("n", 2)
+
+    try:
+        with _cpu_profiler():
+            threads = [threading.Thread(target=work, args=(k,))
+                       for k in range(n_threads)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert profiling.counters() == {"n": 3 * n_threads * n_rounds}
+    inner = [s for s in profiling._STORE.spans if s.name == "inner"]
+    assert len(inner) == n_threads * n_rounds
+    assert all(s.parent.name == "outer" and s.it == s.parent.it
+               and s.call is s.parent for s in inner)
+    tab = profiling.span_table()
+    assert tab["outer"]["calls"] == tab["inner"]["iters"] == len(inner)
+    profiling.reset_spans()
+
+
+def test_trace_fills_its_span_table(tmp_path):
+    profiling.count("before")           # off: not counted
+    with profiling.trace(str(tmp_path / "tr"), device=CPU) as tr:
+        with profiling.span("work"):
+            torch.ones(8).sum()
+        profiling.count("n", 2)
+    assert set(tr.spans) == {"work"} and tr.spans["work"]["count"] == 1
+    assert profiling.counters() == {"n": 2}
+
+
+def test_stage_timers_on_the_host_clock_and_as_spans():
+    """On the CPU a stage adds its host time at once; under the profiler it
+    is also a span."""
+    timers = profiling.StageTimers(period=1 << 30)
+    with timers.stage("a"):
+        time.sleep(0.002)
+    assert timers.totals["a"] >= 0.002 and timers.total_counts["a"] == 1
+    profiling.reset_spans()
+    with _cpu_profiler():
+        with timers.stage("b"), profiling.span("inner"):
+            pass
+    tab = profiling.span_table()
+    assert tab["b"]["count"] == 1 and tab["inner"]["calls"] == 1
+    summary = timers.summary()
+    assert set(summary) == {"a", "b"} and summary["b"][1] == 1
+    assert summary["b"][0] == pytest.approx(tab["b"]["host_s"])
+
+
+MAP_INTR = Intrinsics(fx=50.0, fy=50.0, cx=31.5, cy=23.5, width=64,
+                      height=48)
+MAP_CFG = RenderConfig(tile=16, macro_tiles=2, k_macro=64, k_fine=32,
+                       backend="pallas_lists")
+MAP_ITERS, MAP_B = 3, 3
+
+
+@pytest.fixture(scope="module")
+def map_runs():
+    """A tiny fused ``map_iters`` (full lists, as the benchmark's cells),
+    across the densify of iteration 50, with spans off and then under the
+    CPU profiler, from the same state and draws."""
+    ds = SyntheticDataset(MAP_INTR, n_frames=MAP_B, n_gauss=300, seed=1,
+                          sensor_type="depth", render_cfg=MAP_CFG,
+                          trans_amp=0.05, rot_amp=0.02, device=CPU)
+    scene = ds.scene
+    g = torch.Generator().manual_seed(2)
+    leaves = gm.ParamLeaves(
+        xyz=scene.xyz + 0.02 * torch.randn(scene.xyz.shape, generator=g),
+        sh=scene.sh, log_scale=scene.log_scale, quat=scene.quat,
+        opa_logit=scene.opa_logit)
+    m = gm.insert(gm.new_map(512, device=CPU), leaves, 300, kf_id=0)
+    frames = [ds[v] for v in range(MAP_B)]
+    idx = torch.arange(MAP_B)
+    cams = mapping.empty_cam_batch(MAP_B, 48, 64, CPU)._replace(
+        gt_image=torch.stack([f[0] for f in frames]),
+        gt_depth=torch.stack([f[1][None] for f in frames]),
+        mapping_mask=torch.ones((MAP_B, 1, 48, 64)),
+        T=torch.stack([f[2] for f in frames]),
+        valid=torch.ones(MAP_B, dtype=torch.bool), opt_pose=idx > 0,
+        opt_exposure=idx > 0)
+    mcfg = mapping.MapConfig(monocular=False, window_size=MAP_B,
+                             pool_size=0, split_cap=64, clone_cap=64)
+    noise = torch.randn((2, 64, 3), generator=g)
+
+    def run():
+        return mapping.map_iters(
+            m, cams, MAP_ITERS, 48, torch.Generator().manual_seed(3),
+            MAP_INTR, MAP_CFG, mcfg, gm.MapHyper(),
+            draws=mapping.MapDraws(split_noise=[None, noise]))
+
+    profiling.reset_spans()
+    off = run()
+    assert profiling.span_table() == {}
+    with _cpu_profiler():
+        on = run()
+    return off, on, profiling.span_table(), profiling.counters()
+
+
+def test_map_iters_records_the_ba_tree(map_runs):
+    *_, tab, cnt = map_runs
+    assert cnt == {"ba.iters": MAP_ITERS}
+    per_view = MAP_ITERS * MAP_B
+    assert {k: r["count"] for k, r in tab.items()} == {
+        "ba.call": 1, "ba.iter": MAP_ITERS, "ba.prep": per_view,
+        "ba.map_grad": per_view, "ba.pullback": per_view,
+        "ba.map_adam": MAP_ITERS, "ba.densify": 1,
+        # at the call's start and after the densify of iteration 50
+        "ba.rebin": 2, "ba.visibility": 1}
+    for k, r in tab.items():
+        assert r["calls"] == 1, k
+        assert r["iters"] == (0 if k in ("ba.call", "ba.visibility")
+                              else 1 if k in ("ba.densify", "ba.rebin")
+                              else MAP_ITERS), k
+        assert r["host_self_s"] >= 0.0, k
+    # the self times under the call add up to the call
+    assert sum(r["host_self_s"] for r in tab.values()) == pytest.approx(
+        tab["ba.call"]["host_s"], rel=1e-9)
+
+
+def test_map_iters_same_bits_with_spans_on_and_off(map_runs):
+    off, on, *_ = map_runs
+    assert off.it_count == on.it_count == 48 + MAP_ITERS
+    a = torch.utils._pytree.tree_leaves((off.m, off.cams, off.visibility,
+                                         off.kf_adam))
+    b = torch.utils._pytree.tree_leaves((on.m, on.cams, on.visibility,
+                                         on.kf_adam))
+    assert len(a) == len(b) > 20
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y)
+        else:
+            assert x == y
 
 
 # ------------------------------------------------------------------ trace
